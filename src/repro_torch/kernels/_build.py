@@ -1,0 +1,86 @@
+"""Build the CUDA kernels at first use and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``,
+into a shared library with a plain C interface under ``build/repro_torch/``
+at the root of the checkout.  The library's file name carries a hash of its
+source and flags, so an edited source never loads a stale build.  Nothing is
+compiled at import time: :func:`load` builds on the first call that needs the
+kernel, and :func:`build_all` starts every build at once (one ``nvcc`` per
+source, in parallel) for callers that want the build done up front.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("cluster_assign", "spline_fit")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit on PATH or CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    """Start the build of ``name`` unless its library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, target = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all(names=SOURCES) -> None:
+    """Build every named kernel library, all ``nvcc`` processes at once."""
+    jobs = [(name, _start(name)) for name in names]
+    errors = []
+    for name, job in jobs:   # wait for every build, even after a failure
+        try:
+            _finish(name, job)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    _finish(name, _start(name))
+    return ctypes.CDLL(str(_target(name)))
