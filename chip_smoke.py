@@ -18,12 +18,21 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
 4. tuner   -- ``TransferTuner`` fit on the merged three-testbed history,
               adaptive transfers over the three testbeds fed back through a
               ``KnowledgeRefresher`` (the additive refit), and one fresh day
-              of logs folded in with ``tuner.update``.
+              of logs folded in with ``tuner.update``;
+5. fleet   -- the fleet path on the real xsede testbed's knowledge (every
+              surface of every cluster on the 16^3 lattice): 256 requests
+              through ``run_fleet`` on the vectorized engine with admission
+              by ``auto_concurrency`` (``transfer_select`` on the card), held
+              equal to the same run on knowledge fit on the CPU; 8 requests
+              through the threaded, vectorized and sharded engines, held
+              equal to each other; and 8 requests through a
+              ``KnowledgeService`` that refits on the card.
 
-Phases 3 and 4 are the main path: every kernel's launch count is set to 0
-just before each and read just after, and a kernel that the path did not
-launch fails the run.  Each ends with one more, profiled run of its fit,
-which reports how much of its wall time the card spent running kernels.
+Phases 3, 4 and 5 are the main path: every kernel's launch count is set to
+0 just before each and read just after, and a kernel that the path did not
+launch fails the run.  Each ends with one more, profiled run of its fit or
+fleet, which reports how much of its wall time the card spent running
+kernels.
 The last lines are a JSON ``kernels`` summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs a CUDA card
 and the checkout's ``src/`` beside it.
@@ -50,6 +59,9 @@ M_RANGE = range(4, 13)      # its candidate model orders
 SPLINE_KNOTS = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0)  # the pp grid
 SPLINE_ROWS = 1024
 TESTBED_NAMES = ("xsede", "didclab", "didclab-xsede")
+FLEET_N = 256               # fleet_scale's largest admission-controller fleet
+PARITY_N = 8                # its engine-parity and knowledge-service fleets
+SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
 
 
 class SmokeFailure(RuntimeError):
@@ -135,16 +147,19 @@ def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _kernel_modules():
+    from repro_torch.kernels import cluster_assign, spline_fit, transfer_select
+    return {"cluster_assign": cluster_assign, "spline_fit": spline_fit,
+            "transfer_select": transfer_select}
+
+
 def launch_counts() -> dict[str, int]:
-    from repro_torch.kernels import cluster_assign, spline_fit
-    return {"cluster_assign": cluster_assign.launches,
-            "spline_fit": spline_fit.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import cluster_assign, spline_fit
-    cluster_assign.launches = 0
-    spline_fit.launches = 0
+    for mod in _kernel_modules().values():
+        mod.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -254,6 +269,85 @@ def phase_kernel_spline_fit(device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def fleet_db(device):
+    """The fleet benchmark's knowledge: ten days of xsede history at 180
+    transfers a day, fit with the tuner's defaults on ``device``."""
+    from repro_torch.core import TransferTuner, TunerConfig
+    from repro_torch.netsim import generate_history, make_testbed
+    hist = generate_history(make_testbed("xsede", seed=3), days=10,
+                            transfers_per_day=180, seed=0)
+    return TransferTuner(TunerConfig(seed=0, device=device)).fit(hist).db
+
+
+def fleet_requests(n: int) -> list:
+    """The fleet benchmark's requests: the three file classes in turn, all
+    starting at 04:00 under a constant 15% external load."""
+    from repro_torch.core import FleetRequest
+    from repro_torch.netsim import make_dataset
+    return [FleetRequest(dataset=make_dataset(("small", "medium", "large")[i % 3],
+                                              30 + i),
+                         env_seed=500 + i, start_clock_s=4 * 3600.0,
+                         constant_load=0.15)
+            for i in range(n)]
+
+
+def _select_case(stack, pts, label: str) -> dict:
+    """Hold ``transfer_select`` to its plain version on one cluster's stack
+    and the lattice points ``pts`` (B, P, 3), and time both."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
+
+    values = stack.flat_values
+    idx = stack.flat_index(pts)
+    S, G = values.shape
+    B, P = idx.shape
+
+    best_k, argk_k = batched_predict_argmax_cuda(values, idx)
+    torch.cuda.synchronize()
+    best_p, argk_p = ref.batched_predict_argmax_ref(values, idx)
+    torch.cuda.synchronize()
+    # a gather and a max with no arithmetic: the kernel must be bit-exact
+    check(torch.equal(best_k, best_p) and torch.equal(argk_k, argk_p),
+          f"transfer_select at {label} differs from its plain version")
+    err = (best_k - best_p).abs().max().item()
+
+    ms, call_ms = cuda_ms(lambda: batched_predict_argmax_cuda(values, idx))
+    plain_ms, plain_call_ms = cuda_ms(
+        lambda: ref.batched_predict_argmax_ref(values, idx))
+    # bytes this run's data needs: the lattice values its distinct indices
+    # select from every surface, the indices, and both outputs
+    n_distinct = int(torch.unique(idx).numel())
+    n_bytes = 4 * S * n_distinct + 4 * B * P + 8 * B * S
+    n_ops = B * S * P                     # one comparison per candidate
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"[kernels] transfer_select {label} B={B} P={P} S={S} G={G}: "
+          f"bit-exact (max_abs_err {err:.1e}); kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.3e} ({bound_by}); "
+          f"per eager call kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} "
+          f"ms; library_ms: none (no one PyTorch call gathers candidates and "
+          f"takes their first-index max)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_kernel_transfer_select(db) -> dict:
+    """At the admission path's shape (one batch row: the cluster's own argmax
+    points, as ``predict_demands`` scores them) and at the fleet benchmark's
+    batched-scoring shape (random lattice points)."""
+    import numpy as np
+    stack = max((ck.surface_stack(db.bounds) for ck in db.clusters),
+                key=lambda st: st.n_surfaces)
+    row = _select_case(stack, stack.argmax_pts[None], "admission shape")
+    rng = np.random.default_rng(13)
+    pts = np.stack([rng.integers(1, 17, (SCORE_B, SCORE_P)) for _ in range(3)],
+                   -1)
+    _select_case(stack, pts, "scoring shape")
+    return {"name": "transfer_select", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/transfer_select.cu",
+            "replaces": "src/repro/kernels/transfer_select.py:50", **row}
+
+
 def phase_offline(device) -> dict[str, int]:
     import torch
     from repro_torch.core.clustering import fit_clusters, label_agreement
@@ -361,11 +455,80 @@ def phase_tuner(device) -> dict[str, int]:
           f"launches {counts}")
     check(refresher.refreshes >= 1, "the refresher never refit")
     check(len(fresh) >= 512, "the fresh day has fewer than 512 entries")
-    for name, c in counts.items():
-        check(c > 0, f"the tuner phase launched {name} no time")
+    for name in ("cluster_assign", "spline_fit"):
+        check(counts[name] > 0, f"the tuner phase launched {name} no time")
     busy = device_busy(lambda: TransferTuner(
         TunerConfig(seed=0, device=device)).fit(history))
     print(f"[tuner] profiled tuner fit: {busy_text(*busy)}")
+    return counts
+
+
+def phase_fleet(device, card_db) -> dict[str, int]:
+    import torch
+    from repro_torch.core import (
+        EngineConfig, KnowledgeService, ServiceConfig, run_fleet,
+    )
+
+    reqs = fleet_requests(FLEET_N)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = run_fleet(card_db, reqs, EngineConfig(engine="vectorized"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n256 = launch_counts()
+    check(n256["transfer_select"] > 0,
+          "the N=256 fleet's admission never launched transfer_select")
+    check(len(card.reports) == FLEET_N and card.goodput_mbps > 0
+          and card.accuracy_vs_single > 0,
+          f"the N={FLEET_N} fleet is degenerate: {len(card.reports)} reports, "
+          f"goodput {card.goodput_mbps}, accuracy {card.accuracy_vs_single}")
+    host = run_fleet(fleet_db("cpu"), fleet_requests(FLEET_N),
+                     EngineConfig(engine="vectorized"))
+    check(card == host, f"the N={FLEET_N} fleet on the card differs from the "
+          "same fleet on knowledge fit on the CPU")
+    print(f"[fleet] N={FLEET_N} vectorized, auto admission: wall {wall:.3f} s "
+          f"({FLEET_N / wall:.1f} sessions/s; the first run of these requests "
+          f"includes their single-tenant optima), goodput "
+          f"{card.goodput_mbps:.3f} Mbit/s, accuracy_vs_single "
+          f"{card.accuracy_vs_single:.3f}%, admitted_concurrency "
+          f"{card.admitted_concurrency}, makespan {card.makespan_s:.3f} s, "
+          f"launches {n256}; equal to the CPU-fit run")
+
+    reports = {}
+    for engine, kw in (("threaded", {}), ("vectorized", {}),
+                       ("sharded", {"n_shards": 2, "shard_window_s": 0.0})):
+        t0 = time.perf_counter()
+        reports[engine] = run_fleet(card_db, fleet_requests(PARITY_N),
+                                    EngineConfig(engine=engine, **kw))
+        torch.cuda.synchronize()
+        print(f"[fleet] N={PARITY_N} {engine}: {time.perf_counter() - t0:.3f} s, "
+              f"admitted_concurrency {reports[engine].admitted_concurrency}")
+    check(reports["threaded"] == reports["vectorized"] == reports["sharded"],
+          f"the three engines disagree at N={PARITY_N}")
+
+    svc_db = fleet_db(device)
+    # the scenario harness's service bounds: the fleet benchmark's 600 s
+    # staleness bound never fires inside an 8-request fleet's makespan
+    svc = KnowledgeService(svc_db, ServiceConfig(max_staleness_s=120.0,
+                                                 drift_threshold=0.1))
+    t0 = time.perf_counter()
+    served = run_fleet(svc_db, fleet_requests(PARITY_N),
+                       EngineConfig(max_concurrent=4, knowledge=svc))
+    torch.cuda.synchronize()
+    stats = svc.stats()
+    print(f"[fleet] N={PARITY_N} through a KnowledgeService: "
+          f"{time.perf_counter() - t0:.3f} s, {stats.refits} refits, "
+          f"{stats.entries_folded} entries folded, {stats.minibatch_updates} "
+          f"mini-batch updates, goodput {served.goodput_mbps:.3f} Mbit/s")
+    check(len(served.reports) == PARITY_N
+          and (stats.refits >= 1 or stats.entries_folded >= 1),
+          "the knowledge service fleet neither refit nor folded an entry")
+    counts = launch_counts()
+    print(f"[fleet] launches {counts}")
+    busy = device_busy(lambda: run_fleet(card_db, fleet_requests(FLEET_N),
+                                         EngineConfig(engine="vectorized")))
+    print(f"[fleet] profiled N={FLEET_N} fleet (single-tenant optima cached): "
+          f"{busy_text(*busy)}")
     return counts
 
 
@@ -392,11 +555,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
-    rows = [phase_kernel_cluster_assign(device), phase_kernel_spline_fit(device)]
-    offline = phase_offline(device)
-    tuner = phase_tuner(device)
+    card_db = fleet_db(device)
+    rows = [phase_kernel_cluster_assign(device), phase_kernel_spline_fit(device),
+            phase_kernel_transfer_select(card_db)]
+    paths = [phase_offline(device), phase_tuner(device),
+             phase_fleet(device, card_db)]
     for row in rows:
-        row["launches"] = offline[row["name"]] + tuner[row["name"]]
+        row["launches"] = sum(path[row["name"]] for path in paths)
         check(row["launches"] > 0, f"the main path never launched {row['name']}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -41,21 +41,27 @@ class ClusterKnowledge:
     entries: list[LogEntry]                # raw store for additive refits
     region_seed: int = 0                   # persisted so refits are replayable
     dirty: bool = False
+    # device of the DB this cluster belongs to, where its batched view lives
+    # (None: the CUDA card, see ``device.resolve_device``)
+    device: torch.device | None = dataclasses.field(default=None,
+                                                    compare=False)
     _stack: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def sorted_by_load(self) -> list[ThroughputSurface]:
         return sorted(self.surfaces, key=lambda s: s.load_intensity)
 
     def surface_stack(self, bounds: ParamBounds):
-        """Lazily-built batched view of this cluster's surfaces (fleet path).
+        """Lazily-built batched view of this cluster's surfaces (fleet path),
+        on the cluster's device.
 
-        Cached per ``bounds``; invalidated whenever :meth:`OfflineDB.update`
-        refits this cluster.
+        Cached per ``(bounds, device)``; invalidated whenever
+        :meth:`OfflineDB.update` refits this cluster.
         """
-        if self._stack is None or self._stack[0] != bounds:
+        key = (bounds, resolve_device(self.device))
+        if self._stack is None or self._stack[0] != key:
             from repro_torch.core.batched import SurfaceStack
-            self._stack = (bounds, SurfaceStack.from_surfaces(self.surfaces,
-                                                              bounds))
+            self._stack = (key, SurfaceStack.from_surfaces(self.surfaces,
+                                                           *key))
         return self._stack[1]
 
 
@@ -132,11 +138,12 @@ class OfflineDB:
             region = identify_sampling_regions(surfaces, self.bounds,
                                                seed=ck.region_seed)
             fresh = ClusterKnowledge(ck.centroid, surfaces, region,
-                                     ck.entries, region_seed=ck.region_seed)
+                                     ck.entries, region_seed=ck.region_seed,
+                                     device=device)
             if ck._stack is not None:
                 # keep the batched admission view warm: build the new stack
                 # for the cached bounds *before* publishing the swap
-                fresh.surface_stack(ck._stack[0])
+                fresh.surface_stack(ck._stack[0][0])
             self.clusters[k] = fresh
         return touched
 
@@ -206,7 +213,8 @@ def offline_analysis(entries: list[LogEntry], *,
         surfaces = _fit_cluster_surfaces(sel, n_load_bins, bounds)
         region = identify_sampling_regions(surfaces, bounds, seed=seed + k)
         clusters.append(ClusterKnowledge(cm.centroids[k], surfaces, region,
-                                         sel, region_seed=seed + k))
+                                         sel, region_seed=seed + k,
+                                         device=device))
     return OfflineDB(clusters, cm, bounds, n_load_bins,
                      # repro-lint: disable=DET001 -- fit_seconds metadata (see t0)
                      time.perf_counter() - t0, device=device)
@@ -241,7 +249,7 @@ def _bootstrap_clone(donor: OfflineDB, origin: tuple[str, str],
         cen[0], cen[1] = bw_t, rtt_t
         clusters.append(ClusterKnowledge(
             cen, [scale_surface(ts, s) for ts in ck.surfaces], ck.region,
-            [], region_seed=ck.region_seed))
+            [], region_seed=ck.region_seed, device=donor.device))
     cm = donor.cluster_model
     cents = cm.centroids.copy()
     cents[:, 0], cents[:, 1] = bw_t, rtt_t

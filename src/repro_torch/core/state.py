@@ -114,7 +114,8 @@ def offline_db_from_state(state: dict, device=None) -> OfflineDB:
     clusters = [ClusterKnowledge(
         np.array(ck["centroid"]), [_surface(s) for s in ck["surfaces"]],
         _region(ck["region"]), [LogEntry(*e) for e in ck["entries"]],
-        region_seed=ck["region_seed"]) for ck in state["clusters"]]
+        region_seed=ck["region_seed"], device=device)
+        for ck in state["clusters"]]
     return OfflineDB(clusters, model, ParamBounds(*state["bounds"]),
                      state["n_load_bins"], state["fit_seconds"],
                      origin=state["origin"], device=device)

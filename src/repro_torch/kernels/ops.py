@@ -27,6 +27,22 @@ def cluster_assign(X: torch.Tensor, C: torch.Tensor
     return ref.cluster_assign_ref(X, C)
 
 
+def transfer_predict_argmax(values: torch.Tensor, idx: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best candidate per (request, surface) over stacked surface lattices.
+
+    values: (S, G) flattened integer-lattice surface values; idx: (B, P)
+    flat candidate indices.  Returns (best (B, S) f32, argk (B, S) int32) —
+    fleet admission's batched predict/argmax (``core.batched``).
+    """
+    if values.is_cuda:
+        from repro_torch.kernels.transfer_select import (
+            batched_predict_argmax_cuda,
+        )
+        return batched_predict_argmax_cuda(values, idx)
+    return ref.batched_predict_argmax_ref(values, idx)
+
+
 def nat_spline_fit(x: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Natural-cubic-spline coefficients for many rows over shared knots.
 

@@ -4,6 +4,8 @@ Each function here computes exactly what its CUDA kernel computes, in the
 same order of operations, with ordinary tensor ops.  They are the CPU route
 of ``kernels.ops`` and the yardstick the kernels are held to on the card;
 nothing on the main path calls them when a card is present.
+``take_columns`` is the gather they share with ``core.batched``'s plain
+scoring ops.
 """
 from __future__ import annotations
 
@@ -76,3 +78,51 @@ def cluster_assign_ref(X: torch.Tensor, C: torch.Tensor
     c2 = (C * C).sum(-1)[None, :]                         # (1, M)
     d2 = torch.clamp(x2 - 2.0 * (X @ C.T) + c2, min=0.0)  # (N, M)
     return torch.argmin(d2, dim=1).to(torch.int32), torch.amin(d2, dim=1)
+
+
+# --------------------------------------------------------------------- #
+# batched transfer-surface selection (fleet admission)
+# --------------------------------------------------------------------- #
+def take_columns(values: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
+    """``values[:, flat_idx]`` with the JAX package's gather semantics.
+
+    values: (S, G); flat_idx: (K,) integer indices.  Returns (S, K).  As in
+    ``jnp.take``'s default mode, an index in [-G, 0) counts from the end
+    and an index outside [-G, G) reads NaN instead of raising (a raising
+    gather on a CUDA tensor would be a device-side assert).
+    """
+    G = values.shape[1]
+    i = flat_idx.to(torch.int64)
+    i = torch.where(i < 0, i + G, i)
+    ok = (i >= 0) & (i < G)
+    got = values[:, torch.where(ok, i, torch.zeros_like(i))]
+    return torch.where(ok[None, :], got, torch.full_like(got, float("nan")))
+
+
+def batched_predict_argmax_ref(values: torch.Tensor, idx: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score candidate points on stacked surface lattices and pick the best.
+
+    values: (S, G) flattened integer-lattice surface values; idx: (B, P)
+    flat candidate indices.  Returns (best (B, S) float32, argk (B, S)
+    int32): for every request x surface pair, the best candidate's value
+    and its position in the candidate list.  The argmax takes the first
+    index of the maximum, and a NaN among the candidates wins: the first
+    NaN is the result, as ``jnp.max``/``jnp.argmax`` give it.
+    """
+    values = values.to(torch.float32)
+    S = values.shape[0]
+    B, P = idx.shape
+    if P == 0:
+        raise ValueError("batched_predict_argmax_ref needs P >= 1 candidates")
+    scores = take_columns(values, idx.reshape(-1)).reshape(S, B, P)
+    scores = scores.permute(1, 0, 2)                      # (B, S, P)
+    nan = torch.isnan(scores)
+    any_nan = nan.any(dim=-1)
+    top = torch.where(nan, torch.full_like(scores, -float("inf")),
+                      scores).amax(dim=-1)
+    hit = torch.where(any_nan[..., None], nan, scores == top[..., None])
+    pos = torch.arange(P, device=scores.device).expand_as(scores)
+    argk = torch.where(hit, pos, torch.full_like(pos, P)).amin(dim=-1)
+    best = scores.gather(-1, argk[..., None]).squeeze(-1)
+    return best, argk.to(torch.int32)

@@ -37,7 +37,7 @@ def assert_same(a, b):
 
 def interpret_reference_kernels(monkeypatch):
     """Route the JAX package's kernel dispatch through its Pallas kernels in
-    interpret mode, as its own tests run them on the CPU.  Both dispatch
+    interpret mode, as its own tests run them on the CPU.  The three dispatch
     functions are looked up at call time by their callers, so binding
     ``interpret=True`` here reaches every ``use_pallas=True`` call site."""
     from repro.kernels import ops
@@ -45,3 +45,6 @@ def interpret_reference_kernels(monkeypatch):
                         functools.partial(ops.cluster_assign, interpret=True))
     monkeypatch.setattr(ops, "nat_spline_fit",
                         functools.partial(ops.nat_spline_fit, interpret=True))
+    monkeypatch.setattr(ops, "transfer_predict_argmax",
+                        functools.partial(ops.transfer_predict_argmax,
+                                          interpret=True))

@@ -13,13 +13,15 @@ import pytest
 import torch
 
 from repro_torch.core import (
-    TransferTuner, TunerConfig, fit_clusters, offline_analysis,
-    offline_db_from_state,
+    FleetRequest, SurfaceStack, TransferTuner, TunerConfig, fit_clusters,
+    offline_analysis, offline_db_from_state, run_fleet,
 )
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.cluster_assign import cluster_assign_cuda
 from repro_torch.kernels.spline_fit import nat_spline_fit_cuda
+from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
+from repro_torch.netsim import ParamBounds, make_dataset
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -68,7 +70,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    assert int(out.stdout.strip().splitlines()[-1]) >= 44
 
 
 # ------------------------------------------------------------------ #
@@ -110,6 +112,26 @@ def test_entry_points_default_to_the_card(no_cuda):
     assert fit_clusters(X, m_range=range(2, 4), device="cpu").m in (2, 3)
 
 
+def test_fleet_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """A DB made without a device lives on the card, so the fleet's batched
+    admission view of it, and a fleet run that builds that view, raise here;
+    a DB made on the CPU by name runs."""
+    with pytest.raises(RuntimeError):
+        SurfaceStack.from_surfaces([], ParamBounds())
+    from repro_torch.netsim import generate_history, make_testbed
+    hist = generate_history(make_testbed("xsede", seed=3), days=1,
+                            transfers_per_day=60, seed=0)
+    db = TransferTuner(TunerConfig(seed=0, device="cpu")).fit(hist).db
+    reqs = [FleetRequest(make_dataset("small", 3), env_seed=1)]
+    for ck in db.clusters:
+        ck.device = None                # as if the DB had been made bare
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fleet(db, reqs)
+    for ck in db.clusters:
+        ck.device = torch.device("cpu")
+    assert len(run_fleet(db, reqs).reports) == 1
+
+
 def test_ops_route_by_tensor_device_and_cuda_wrappers_refuse_cpu_tensors():
     rng = np.random.default_rng(1)
     X = torch.from_numpy(rng.normal(size=(100, 4)).astype(np.float32))
@@ -123,6 +145,13 @@ def test_ops_route_by_tensor_device_and_cuda_wrappers_refuse_cpu_tensors():
         cluster_assign_cuda(X, C)
     with pytest.raises(ValueError, match="CUDA"):
         nat_spline_fit_cuda(x, Y)
+    values = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 64, (9, 4)).astype(np.int32))
+    for got, want in zip(ops.transfer_predict_argmax(values, idx),
+                         ref.batched_predict_argmax_ref(values, idx)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_predict_argmax_cuda(values, idx)
 
 
 def _smoke(cwd):
