@@ -26,13 +26,22 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               equal to the same run on knowledge fit on the CPU; 8 requests
               through the threaded, vectorized and sharded engines, held
               equal to each other; and 8 requests through a
-              ``KnowledgeService`` that refits on the card.
+              ``KnowledgeService`` that refits on the card;
+6. serve   -- zamba2-7b at full width and depth (81 Mamba2 layers, the
+              shared attention block 13 times, d_model 3584), weights from
+              a seeded generator on the card: 8 seeded prompts of 2048
+              tokens, prefill, then 64 greedy decode steps through
+              ``repro_torch.launch.serve``, held to the same weights and
+              prompts on the plain route (``use_kernel=False``, teacher
+              forced on the kernel run's tokens); one prefill launches
+              exactly 81 ``ssd_scan`` and 13 ``flash_attention``, decode
+              neither.
 
-Phases 3, 4 and 5 are the main path: every kernel's launch count is set to
+Phases 3 to 6 are the main path: every kernel's launch count is set to
 0 just before each and read just after, and a kernel that the path did not
-launch fails the run.  Each ends with one more, profiled run of its fit or
-fleet, which reports how much of its wall time the card spent running
-kernels.
+launch fails the run.  Each ends with one more, profiled run of its fit,
+fleet or decode steps, which reports how much of its wall time the card
+spent running kernels.
 The last lines are a JSON ``kernels`` summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs a CUDA card
 and the checkout's ``src/`` beside it.
@@ -50,9 +59,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet): HBM3 bandwidth and float32 outside the tensor cores.
+# data sheet): HBM3 bandwidth, float32 outside the tensor cores, and bf16 on
+# the tensor cores (dense).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 N_ROWS = 1_000_000          # the repo's stated clustering scale
 M_RANGE = range(4, 13)      # its candidate model orders
@@ -62,6 +73,9 @@ TESTBED_NAMES = ("xsede", "didclab", "didclab-xsede")
 FLEET_N = 256               # fleet_scale's largest admission-controller fleet
 PARITY_N = 8                # its engine-parity and knowledge-service fleets
 SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
+SERVE_ARCH = "zamba2-7b"    # the port's one LM family, at full size
+SERVE_BATCH, SERVE_PROMPT = 8, 2048
+SERVE_STEPS = 64            # greedy decode steps after the prefill
 
 
 class SmokeFailure(RuntimeError):
@@ -116,10 +130,15 @@ def cuda_ms(fn, iters: int = 30, reps: int = 20) -> tuple[float, float]:
     return device, call
 
 
-def device_busy(fn) -> tuple[float, float | None]:
-    """(wall s, summed kernel s or None) of one call of ``fn`` under
-    ``torch.profiler``; None when the profiler saw no device time."""
+def device_profile(fn, top: int = 0):
+    """(wall s, summed kernel s or None, the ``top`` kernels by device time
+    as (name, ms, calls)) of one call of ``fn`` under ``torch.profiler``;
+    None when the profiler saw no device time.  Only device-side events
+    count (kernels, copies, sets): an operator's own row repeats the time of
+    the kernels it launched, and the profiler's "Command Buffer Full"
+    marker is the host waiting, not the device working."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -128,9 +147,26 @@ def device_busy(fn) -> tuple[float, float | None]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages())
-    return wall, (us * 1e-6 if us > 0 else None)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and not e.key.startswith("Command Buffer")]
+    us = sum(e.self_device_time_total for e in events)
+    ranked = sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in ranked[:top]]
+    return wall, (us * 1e-6 if us > 0 else None), ops
+
+
+def device_busy(fn) -> tuple[float, float | None]:
+    """(wall s, summed kernel s or None) of one call of ``fn`` under
+    ``torch.profiler``; None when the profiler saw no device time."""
+    wall, dev, _ = device_profile(fn)
+    return wall, dev
+
+
+def top_text(ops) -> str:
+    return "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in ops)
 
 
 def busy_text(wall: float, dev: float | None) -> str:
@@ -140,17 +176,21 @@ def busy_text(wall: float, dev: float | None) -> str:
             f"= {100 * dev / wall:.2f}%")
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOP_PER_S
+          ) -> tuple[float, str]:
     """Least time the card could take, in ms, and what sets it."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _kernel_modules():
-    from repro_torch.kernels import cluster_assign, spline_fit, transfer_select
+    from repro_torch.kernels import (
+        cluster_assign, flash_attention, spline_fit, ssm_scan, transfer_select,
+    )
     return {"cluster_assign": cluster_assign, "spline_fit": spline_fit,
-            "transfer_select": transfer_select}
+            "transfer_select": transfer_select,
+            "flash_attention": flash_attention, "ssd_scan": ssm_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -348,6 +388,188 @@ def phase_kernel_transfer_select(db) -> dict:
             "replaces": "src/repro/kernels/transfer_select.py:50", **row}
 
 
+def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                 q_offset: int) -> int:
+    """(query, key) pairs that the masks let through, per (batch, head)."""
+    import numpy as np
+    qpos = np.arange(Sq) + q_offset
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attention_case(device, dtype, shape, causal: bool, window: int,
+                    q_offset: int, label: str, library: bool) -> dict:
+    """Hold ``flash_attention`` to its plain version on random q, k, v of
+    ``shape`` = (B, Sq, Sk, Hq, Hkv, D), and time both (and SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    B, Sq, Sk, Hq, Hkv, D = shape
+    g = torch.Generator(device=device).manual_seed(Sq + Sk + D)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=device).to(dtype)
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=device).to(dtype)
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=device).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
+    out_k = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    out_p = ops.plain_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    # The kernel keeps float32 probabilities; the plain version rounds them
+    # to v's dtype before the product with v (the reference oracle's
+    # probs.astype(v.dtype)).  In bf16 that rounding (2^-9 relative per
+    # probability) and the output's own rounding to bf16 bound the gap at
+    # 2^-6 of max |v|; in float32 only the order of sums differs: 1e-4.
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-4) * v.abs().max().item()
+    check(err <= tol, f"flash_attention {label} {dtype} disagrees with its "
+          f"plain version: max abs err {err:.3e} > {tol:.3e}")
+    del out_k, out_p
+
+    ms, call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                          iters=10, reps=5)
+    plain_ms, _ = cuda_ms(lambda: ops.plain_attention(q, k, v, **kw),
+                          iters=5, reps=2)
+    library_ms = None
+    if library:   # the same function as one PyTorch call, timed only here
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=10, reps=5)
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    n_flops = 4 * D * _valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    bound_ms, bound_by = bound(n_bytes, n_flops, peak)
+    lib = "none" if library_ms is None else f"{library_ms:.4f}"
+    print(f"[kernels] flash_attention {label} {str(dtype)[6:]} B={B} Sq={Sq} "
+          f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window} "
+          f"q_offset={q_offset}: max_abs_err={err:.3e} (tol {tol:.3e}); "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"({bound_by}, {n_flops:.3e} flop, {n_bytes:.3e} B) sdpa_ms={lib}; "
+          f"per eager call kernel {call_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_kernel_flash_attention(device) -> dict:
+    """At the serve path's shape (zamba2-7b prefill: causal, D = 112) and at
+    a GQA + window + q_offset case with ragged Sq and Sk, in bf16 and f32;
+    the row reported is the serve shape in bf16, the path's dtype."""
+    import torch
+    serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _attention_case(device, dtype, serve_shape, True, 0, 0,
+                            "serve shape", library=True)
+        row = row or r
+        _attention_case(device, dtype, (2, 1000, 1500, 24, 8, 128), True,
+                        256, 500, "GQA+window+offset, ragged", library=False)
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:96", **row}
+
+
+def _ssd_case(device, dtype, shape, chunk: int, init: bool, label: str
+              ) -> dict:
+    """Hold ``ssd_scan`` to its plain version on random inputs of
+    ``shape`` = (B, L, H, P, N) (final state included), and time both."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+
+    B, L, H, P, N = shape
+    g = torch.Generator(device=device).manual_seed(L + H)
+    x = torch.randn((B, L, H, P), generator=g, device=device).to(dtype)
+    Bm = torch.randn((B, L, N), generator=g, device=device).to(dtype)
+    Cm = torch.randn((B, L, N), generator=g, device=device).to(dtype)
+    dt = torch.rand((B, L, H), generator=g, device=device) * 0.19 + 0.01
+    A = -(torch.rand((H,), generator=g, device=device) * 1.5 + 0.5)
+    s0 = (torch.randn((B, H, P, N), generator=g, device=device) if init
+          else None)
+    kw = dict(chunk=chunk, initial_state=s0, return_state=True)
+
+    y_k, s_k = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+    torch.cuda.synchronize()
+    y_p, s_p = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+    torch.cuda.synchronize()
+    # Both accumulate in float32, in another order; the output is rounded to
+    # x's dtype (bf16: 2^-9 relative, bounded here at 2^-6 of the scale;
+    # float32: 1e-4).  The final state is float32 in both: 1e-4 of its
+    # scale.  Each bound adds the decays' float32 sensitivity (ssd_rel_tol).
+    err = (y_k.float() - y_p.float()).abs().max().item()
+    base = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+    tol = ssd_rel_tol(dt, A, chunk, base) * y_p.float().abs().max().item()
+    err_s = (s_k - s_p).abs().max().item()
+    tol_s = ssd_rel_tol(dt, A, chunk, 1e-4) * s_p.abs().max().item()
+    check(err <= tol and err_s <= tol_s,
+          f"ssd_scan {label} {dtype} disagrees with its plain version: y err "
+          f"{err:.3e} (tol {tol:.3e}), state err {err_s:.3e} (tol {tol_s:.3e})")
+    del y_k, s_k, y_p, s_p
+
+    ms, call_ms = cuda_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, **kw),
+                          iters=10, reps=5)
+    plain_ms, _ = cuda_ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw),
+                          iters=5, reps=2)
+    lens = [min(chunk, L - t0) for t0 in range(0, L, chunk)]
+    n_flops = B * sum(2 * q * q * N // 2 + H * (2 * q * q * P // 2
+                                                + 4 * q * P * N)
+                      for q in lens)
+    n_bytes = (x.element_size() * 2 * x.numel()
+               + Bm.element_size() * 2 * Bm.numel() + 4 * dt.numel()
+               + 4 * A.numel() + 4 * B * H * P * N * (2 if init else 1))
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    bound_ms, bound_by = bound(n_bytes, n_flops, peak)
+    print(f"[kernels] ssd_scan {label} {str(dtype)[6:]} B={B} L={L} H={H} "
+          f"P={P} N={N} chunk={chunk} initial_state={init}: "
+          f"max_abs_err(y)={err:.3e} (tol {tol:.3e}) max_abs_err(state)="
+          f"{err_s:.3e} (tol {tol_s:.3e}); kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+          f"{n_flops:.3e} flop, {n_bytes:.3e} B); per eager call kernel "
+          f"{call_ms:.4f} ms; library_ms: none (no one PyTorch call runs the "
+          f"SSD scan)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def ssd_rel_tol(dt, A, chunk: int, base: float) -> float:
+    """Relative tolerance of the SSD scan: ``base`` for the order of sums,
+    plus the float32 sensitivity of its decays.  Both versions take exp of
+    differences of within-chunk cumsums of dt * A; a cumsum of 256 terms
+    carries an absolute rounding of ~16 ulps of its magnitude, so a decay
+    exp(cum_q - cum_k) is known to ~2^-18 |cum| relative (the serve path's
+    dt reaches ~20, so |cum| reaches hundreds; random test inputs stay
+    below 100)."""
+    import torch
+    import torch.nn.functional as F
+    B, L, H = dt.shape
+    pad = (-L) % chunk
+    dA = F.pad(dt.float() * A.float(), (0, 0, 0, pad))
+    cum = torch.cumsum(dA.reshape(B, -1, chunk, H), dim=2)
+    return base + 2.0 ** -18 * cum.abs().max().item()
+
+
+def phase_kernel_ssd_scan(device) -> dict:
+    """At the serve path's shape (zamba2-7b prefill: H = 112, P = N = 64,
+    chunk 256, final state) and at a ragged L = 2000 with a non-zero initial
+    state, in bf16 and f32; the row reported is the serve shape in bf16."""
+    import torch
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _ssd_case(device, dtype, (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64),
+                      256, False, "serve shape")
+        row = row or r
+        _ssd_case(device, dtype, (2, 2000, 112, 64, 64), 256, True,
+                  "ragged L, initial state")
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:86", **row}
+
+
 def phase_offline(device) -> dict[str, int]:
     import torch
     from repro_torch.core.clustering import fit_clusters, label_agreement
@@ -532,6 +754,252 @@ def phase_fleet(device, card_db) -> dict[str, int]:
     return counts
 
 
+def _checked_kernels(errors: list):
+    """Context: ``ops.flash_attention`` and ``ops.ssd_scan`` replaced by
+    versions that launch the kernel, run its plain version on the same
+    inputs, and append (name, max abs err, tolerance) to ``errors``.  The
+    models look both up in ``ops`` at each call."""
+    import contextlib
+
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    fa, ssd = ops.flash_attention, ops.ssd_scan
+
+    def flash_attention(q, k, v, **kw):
+        out = fa(q, k, v, **kw)
+        want = ops.plain_attention(q, k, v, **kw)
+        tol = (2 ** -6 if q.dtype == torch.bfloat16 else 1e-4) \
+            * v.abs().max().item()
+        errors.append(("flash_attention",
+                       (out.float() - want.float()).abs().max().item(), tol))
+        return out
+
+    def ssd_scan(x, dt, A, B, C, **kw):
+        out = ssd(x, dt, A, B, C, **kw)
+        want = ref.ssd_chunked_ref(x, dt, A, B, C, **kw)
+        y, y_p = (out[0], want[0]) if kw.get("return_state") else (out, want)
+        base = 2 ** -6 if x.dtype == torch.bfloat16 else 1e-4
+        chunk = kw["chunk"]
+        tol = ssd_rel_tol(dt, A, chunk, base) * y_p.float().abs().max().item()
+        errors.append(("ssd_scan",
+                       (y.float() - y_p.float()).abs().max().item(), tol))
+        if kw.get("return_state"):
+            errors.append(("ssd_scan state",
+                           (out[1] - want[1]).abs().max().item(),
+                           ssd_rel_tol(dt, A, chunk, 1e-4)
+                           * want[1].abs().max().item()))
+        return out
+
+    @contextlib.contextmanager
+    def swapped():
+        ops.flash_attention, ops.ssd_scan = flash_attention, ssd_scan
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.ssd_scan = fa, ssd
+    return swapped()
+
+
+def _logit_gap(run, plain) -> tuple[list[float], float, float, float]:
+    """Max |logit difference| per position (the prefill's, then each decode
+    step's), the logits' scale, and greedy agreement (all tokens, the
+    prefill's picks)."""
+    pairs = [(run.prefill_logits, plain.prefill_logits)] + list(
+        zip(run.decode_logits, plain.decode_logits))
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+    scale = max(b.float().abs().max().item() for _, b in pairs)
+    agree = (run.tokens == plain.tokens).float().mean().item()
+    agree0 = (run.tokens[:, 0] == plain.tokens[:, 0]).float().mean().item()
+    return errs, scale, agree, agree0
+
+
+def _check_on_activations(model, prompts, label: str) -> None:
+    """One prefill with every kernel result held to its plain version on
+    the same inputs (``_checked_kernels``); fails on any miss."""
+    import torch
+    cfg = model.cfg
+    errors: list = []
+    with _checked_kernels(errors):
+        model.prefill(prompts, model.init_cache(prompts.shape[0],
+                                                prompts.shape[1] + 1))
+    torch.cuda.synchronize()
+    bad = [e for e in errors if not e[1] <= e[2]]
+    worst = {name: max(e[1] / e[2] for e in errors if e[0] == name)
+             for name in {e[0] for e in errors}}
+    print(f"[serve] a {label} prefill's {len(errors)} kernel results held to "
+          f"the plain versions on the same activations: worst err/tol "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    check(len(errors) == 2 * cfg.n_layers + n_attn and not bad,
+          f"{label} kernel results on the serve path's activations disagree "
+          f"with their plain versions: {bad[:4]}")
+
+
+def phase_serve(device) -> dict[str, int]:
+    """zamba2-7b at full width and depth on the card: 8 prompts of 2048
+    tokens, prefill, then 64 greedy decode steps through the kernels, timed
+    and counted.  Then three checks against the plain route
+    (``use_kernel=False``) on the same weights and prompts:
+
+    - every kernel launch of one bf16 prefill against its plain version on
+      the same activations (gated, the kernels' own tolerances);
+    - the bf16 logits of the two routes, teacher forced on the kernel run's
+      tokens (reported, not gated: see the comment there);
+    - the same model in float32: every kernel launch of a prefill against
+      its plain version (gated), and prefill and 8 teacher-forced decode
+      steps through both routes, against a bound made of the growth over
+      depth measured in the same run (gated).
+    """
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SERVE_ARCH, "full")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.cfg.use_kernel is True, "the model on the card does not use "
+          "the kernels by default")
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=device)
+    n_tokens = SERVE_STEPS + 1          # the prefill's pick and 64 steps
+    t0 = time.perf_counter()
+    warm = serve(model, prompts, 3)     # first use of each path
+    warm_s = time.perf_counter() - t0
+    del warm
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    run = serve(model, prompts, n_tokens, keep_logits=True)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    check(counts["ssd_scan"] == cfg.n_layers
+          and counts["flash_attention"] == n_attn,
+          f"a prefill and {SERVE_STEPS} decode steps launched "
+          f"{counts['ssd_scan']} ssd_scan and {counts['flash_attention']} "
+          f"flash_attention, not {cfg.n_layers} and {n_attn} (prefill only)")
+    logits = [run.prefill_logits] + run.decode_logits
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits)
+          and run.prefill_logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
+          and run.tokens.shape == (SERVE_BATCH, n_tokens),
+          "the serve run's logits are not finite or not of the served shape")
+    p50 = run.decode_p50_ms()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in {str(cfg.dtype)[6:]}, seeded "
+          f"on the card in {init_s:.3f} s; warm-up serve (3 tokens) "
+          f"{warm_s:.3f} s")
+    print(f"[serve] batch {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens: "
+          f"prefill {run.prefill_ms:.3f} ms, decode p50 {p50:.3f} ms over "
+          f"{len(run.decode_ms) - 1} steps (first left out; mean "
+          f"{statistics.mean(run.decode_ms[1:]):.3f} ms, max "
+          f"{max(run.decode_ms[1:]):.3f} ms), {SERVE_BATCH * 1e3 / p50:.1f} "
+          f"tok/s; peak memory {peak_gb:.3f} GB; launches {counts}")
+
+    # where the time goes: 4 more decode steps on the run's cache (its room
+    # holds prompt + tokens + 4 positions), then one prefill
+    tok = run.tokens[:, -1:]
+
+    def more_steps():
+        t, c = tok, run.cache
+        for _ in range(4):
+            lg, c = model.decode(t, c)
+            t = torch.argmax(lg, dim=-1)
+
+    wall, dev, ops_ = device_profile(more_steps, top=8)
+    print(f"[serve] profiled 4 decode steps: {busy_text(wall, dev)}; top "
+          f"device ops: {top_text(ops_)}")
+    wall, dev, ops_ = device_profile(lambda: model.prefill(
+        prompts, model.init_cache(SERVE_BATCH, n_tokens + SERVE_PROMPT + 4)),
+        top=8)
+    print(f"[serve] profiled prefill: {busy_text(wall, dev)}; top device "
+          f"ops: {top_text(ops_)}")
+
+    # 1. every launch of one prefill against its plain version on the same
+    #    activations (the serve path's real inputs, not random ones)
+    _check_on_activations(model, prompts, "bf16")
+
+    # 2. the bf16 routes end to end.  The reference's init gives stacked
+    #    layer weights std 1/sqrt(81), a high-gain stack: check 3 measures
+    #    how much a small relative perturbation of the embeddings grows by
+    #    the logits.  bf16 rounds at 2^-9, so two bf16 routes that round at
+    #    different places (the plain route rounds attention probabilities
+    #    to bf16, as the reference oracle does; the kernels keep them and
+    #    the SSD's sums in float32) can decorrelate by the last layer.  The
+    #    gap is reported; checks 1 and 3 gate.
+    model.cfg = dataclasses.replace(model.cfg, use_kernel=False)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    plain = serve(model, prompts, n_tokens, force=run.tokens,
+                  keep_logits=True)
+    plain_s = time.perf_counter() - t0
+    check(launch_counts() == before, "the plain route launched a kernel")
+    errs, scale, agree, agree0 = _logit_gap(run, plain)
+    print(f"[serve] bf16 plain route (teacher forced): {plain_s:.3f} s, "
+          f"prefill {plain.prefill_ms:.3f} ms, decode p50 "
+          f"{plain.decode_p50_ms():.3f} ms; max |logit diff| prefill "
+          f"{errs[0]:.4f}, decode {max(errs[1:]):.4f} (step mean "
+          f"{statistics.mean(errs[1:]):.4f}), logit scale {scale:.4f}; greedy "
+          f"agreement {100 * agree:.2f}% of tokens ({100 * agree0:.1f}% of "
+          f"the prefill's picks); reported, not gated")
+    del model, run, plain
+    torch.cuda.empty_cache()
+
+    # 3. float32, where the kernels and the plain versions differ only in
+    #    the order of sums: ~1e-6 of their outputs' scale (phase 2 and check
+    #    1 here in float32).  The depth multiplies such a difference: the
+    #    growth is measured here, as the plain prefill's logits move when
+    #    the embedding table is perturbed by 1e-6 (relative).  The routes'
+    #    gap is bounded by that growth of a 1e-6 difference, times
+    #    sqrt(launches a prefill) for the 94 places such differences enter.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = build_model(cfg32, device, seed=0)
+    _check_on_activations(model, prompts, "float32")
+    steps32 = 8
+    t0 = time.perf_counter()
+    run = serve(model, prompts, steps32 + 1, keep_logits=True)
+    k_s = time.perf_counter() - t0
+    model.cfg = dataclasses.replace(model.cfg, use_kernel=False)
+    plain = serve(model, prompts, steps32 + 1, force=run.tokens,
+                  keep_logits=True)
+    errs, scale, agree, agree0 = _logit_gap(run, plain)
+    emb = model.embedding.detach().clone()
+    g = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        model.embedding.mul_(1 + 1e-6 * torch.randn(
+            emb.shape, generator=g, device=device))
+    nudged, _ = model.prefill(prompts, model.init_cache(SERVE_BATCH,
+                                                        SERVE_PROMPT + 1))
+    with torch.no_grad():
+        model.embedding.copy_(emb)
+    growth = ((nudged - plain.prefill_logits).abs().max().item()
+              / plain.prefill_logits.abs().max().item() / 1e-6)
+    print(f"[serve] float32 plain prefill with the embeddings perturbed by "
+          f"1e-6 (relative): the last logits move by {growth * 1e-6:.3e} "
+          f"of their scale, a growth over depth of {growth:.1f}x")
+    print(f"[serve] float32, kernel route ({k_s:.3f} s; prefill "
+          f"{run.prefill_ms:.3f} ms) against the plain route (prefill "
+          f"{plain.prefill_ms:.3f} ms), {steps32} teacher-forced decode steps: "
+          f"max |logit diff| prefill {errs[0]:.3e}, decode {max(errs[1:]):.3e}, "
+          f"logit scale {scale:.4f} ({100 * max(errs) / scale:.2f}%); greedy "
+          f"agreement {100 * agree:.2f}%")
+    n_launch = cfg.n_layers + cfg.n_layers // cfg.hybrid_attn_every
+    tol = n_launch ** 0.5 * growth * 1e-6 * scale
+    check(max(errs) <= tol,
+          f"in float32 the kernel route's logits differ from the plain "
+          f"route's by {max(errs):.3e} > {tol:.3e} (sqrt({n_launch}) x growth "
+          f"{growth:.1f} x 1e-6 x scale {scale:.3f})")
+    del model, run, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     import torch
@@ -557,9 +1025,10 @@ def main() -> int:
     phase_build()
     card_db = fleet_db(device)
     rows = [phase_kernel_cluster_assign(device), phase_kernel_spline_fit(device),
-            phase_kernel_transfer_select(card_db)]
+            phase_kernel_transfer_select(card_db),
+            phase_kernel_flash_attention(device), phase_kernel_ssd_scan(device)]
     paths = [phase_offline(device), phase_tuner(device),
-             phase_fleet(device, card_db)]
+             phase_fleet(device, card_db), phase_serve(device)]
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         check(row["launches"] > 0, f"the main path never launched {row['name']}")

@@ -1,0 +1,33 @@
+"""Architecture configs the port runs.  Each module exposes ``full()`` (the
+published configuration) and ``smoke()`` (a reduced same-family config for
+CPU tests).  Select with ``--arch <id>`` in the launchers, or
+``get_config(id)`` here.
+
+Only the families the port has are registered; any other id raises, and
+ROADMAP.md says where its family waits.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ["zamba2_7b"]
+
+# canonical dashed names from the assignment table
+ALIASES = {"zamba2-7b": "zamba2_7b"}
+
+
+def get_config(arch: str, variant: str = "full"):
+    mod_name = ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
+    if mod_name not in ARCH_IDS:
+        raise ValueError(
+            f"architecture {arch!r} is not ported to repro_torch (it has "
+            f"{', '.join(ALIASES)}); ROADMAP.md, queue 1 (the LM stack), "
+            f"lists where its family waits")
+    if variant not in ("full", "smoke"):
+        raise ValueError(f"variant must be 'full' or 'smoke', got {variant!r}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return getattr(mod, variant)()
+
+
+def all_archs() -> list[str]:
+    return list(ALIASES.keys())

@@ -55,3 +55,75 @@ def nat_spline_fit(x: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         from repro_torch.kernels.spline_fit import nat_spline_fit_cuda
         return nat_spline_fit_cuda(x, Y)
     return ref.nat_spline_fit_ref(x, Y)
+
+
+# Above this KV length the plain route switches from materialised scores to
+# the blocked online-softmax loop (the reference's switch).
+BLOCKED_ATTENTION_THRESHOLD = 2048
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """The plain route of ``flash_attention``, the reference's non-Pallas
+    one: ``attention_ref`` up to 2048 keys, ``attention_blocked`` above."""
+    if k.shape[1] > BLOCKED_ATTENTION_THRESHOLD:
+        return ref.attention_blocked(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """GQA scaled-dot-product attention. q: (B, Sq, Hq, D); k/v:
+    (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype — the shared attention
+    block's prefill (``models.attention``)."""
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    return plain_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """Single-step attention against a (possibly ring-buffer) KV cache.
+
+    q: (B, 1, Hq, D); caches: (B, L, Hkv, D); valid_mask: (B, L) or (1, L).
+    Plain torch on every device, as in the reference, which has no kernel
+    for it: a memory-bound gather and reduce over the cache.
+    """
+    B, Sq, Hq, D = q.shape
+    _, L, Hkv, _ = k_cache.shape
+    g = Hq // Hkv
+    f32 = torch.float32
+    qr = q.reshape(B, Sq, Hkv, g, D)
+    scores = torch.einsum("bqhgd,blhd->bhgql", qr.to(f32),
+                          k_cache.to(f32)) / torch.sqrt(
+                              torch.tensor(D, dtype=f32))
+    mask = valid_mask[:, None, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, ref.NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgql,blhd->bqhgd", probs, v_cache.to(f32))
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             initial_state: torch.Tensor | None = None,
+             return_state: bool = False):
+    """Mamba2 SSD over a sequence (``ref.ssd_chunked_ref``'s contract):
+    y (B, L, H, P) in x.dtype and, with ``return_state``, the final state
+    (B, H, P, N) f32 — every Mamba2 layer's prefill (``models.ssm``)."""
+    if x.is_cuda:
+        from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                             initial_state=initial_state,
+                             return_state=return_state)
+    return ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
+                               initial_state=initial_state,
+                               return_state=return_state)

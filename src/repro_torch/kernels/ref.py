@@ -6,10 +6,18 @@ of ``kernels.ops`` and the yardstick the kernels are held to on the card;
 nothing on the main path calls them when a card is present.
 ``take_columns`` is the gather they share with ``core.batched``'s plain
 scoring ops.
+
+The LM stack's twins (attention and the Mamba2 SSD scan) follow the JAX
+package's oracles op for op, so that they are the port's oracle as those
+are the reference's: ``attention_ref`` keeps the oracle's rounding of the
+probabilities to ``v``'s dtype before the product with v, which the kernel
+(like the Pallas kernel) does not do.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 # --------------------------------------------------------------------- #
@@ -126,3 +134,219 @@ def batched_predict_argmax_ref(values: torch.Tensor, idx: torch.Tensor
     argk = torch.where(hit, pos, torch.full_like(pos, P)).amin(dim=-1)
     best = scores.gather(-1, argk[..., None]).squeeze(-1)
     return best, argk.to(torch.int32)
+
+
+# --------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------- #
+NEG_INF = -1e30
+
+
+def _band(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int
+          ) -> torch.Tensor:
+    """(len(qpos), len(kpos)) bool: which keys each query may see."""
+    mask = torch.ones((qpos.numel(), kpos.numel()), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0,
+                  logits_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Grouped-query scaled-dot-product attention.
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) with Hq % Hkv == 0.
+    ``q_offset`` is the absolute position of q[0] (decode: Sk - Sq).
+    ``window`` > 0 enables sliding-window causal masking.
+    Returns (B, Sq, Hq, D) in q.dtype.  A masked score is -1e30, so a query
+    that sees no key gets the mean of v, as in the reference.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    qr = q.reshape(B, Sq, Hkv, g, D)
+    scale = 1.0 / np.sqrt(D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qr.to(logits_dtype),
+                          k.to(logits_dtype)) * scale
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    logits.masked_fill_(~_band(qpos, kpos, causal, window), NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0, q_offset: int = 0,
+                      bq: int = 1024, bk: int = 1024) -> torch.Tensor:
+    """Flash-style attention in plain torch: a loop over q blocks with an
+    inner loop over kv blocks carrying online-softmax statistics, so no more
+    than a (B, H, bq, bk) tile of scores is live.  Fully masked tiles are
+    computed (the mask is applied numerically), as in the reference.
+    Sq and Sk must be multiples of the block sizes (after clipping them to
+    Sq and Sk)."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    bq = min(bq, Sq)
+    bk = min(bk, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"attention_blocked needs Sq % bq == 0 and "
+                         f"Sk % bk == 0, got Sq={Sq}, bq={bq}, Sk={Sk}, bk={bk}")
+    nq, nk = Sq // bq, Sk // bk
+    f32 = torch.float32
+    scale = 1.0 / np.sqrt(D)
+    # (B, Hkv, g, S, D) head-major blocks
+    qh = q.reshape(B, Sq, Hkv, g, D).permute(0, 2, 3, 1, 4).to(f32) * scale
+    kh = k.permute(0, 2, 1, 3).to(f32)                    # (B, Hkv, Sk, D)
+    vh = v.permute(0, 2, 1, 3).to(f32)
+    dev = q.device
+    blocks = []
+    for qi in range(nq):
+        qblk = qh[:, :, :, qi * bq:(qi + 1) * bq]         # (B,Hkv,g,bq,D)
+        qpos = torch.arange(bq, device=dev) + q_offset + qi * bq
+        m = torch.full((B, Hkv, g, bq), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((B, Hkv, g, bq), dtype=f32, device=dev)
+        acc = torch.zeros((B, Hkv, g, bq, D), dtype=f32, device=dev)
+        for ki in range(nk):
+            kblk = kh[:, :, ki * bk:(ki + 1) * bk]        # (B,Hkv,bk,D)
+            vblk = vh[:, :, ki * bk:(ki + 1) * bk]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kblk)
+            kpos = torch.arange(bk, device=dev) + ki * bk
+            s = torch.where(_band(qpos, kpos, causal, window), s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vblk)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,Hkv,g,bq,D)
+        blocks.append(out.permute(0, 3, 1, 2, 4))         # (B,bq,Hkv,g,D)
+    return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# --------------------------------------------------------------------- #
+# Mamba2 SSD (state-space duality), chunked
+# --------------------------------------------------------------------- #
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bmat: torch.Tensor, Cmat: torch.Tensor, *,
+                    chunk: int = 256, initial_state: torch.Tensor | None = None,
+                    return_state: bool = False):
+    """Chunked SSD scan (Dao & Gu 2024, "minimal mamba2" algorithm).
+
+    x:  (B, L, H, P)   inputs per head
+    dt: (B, L, H)      positive step sizes (already softplus'd)
+    A:  (H,)           negative per-head decay rates
+    Bmat, Cmat: (B, L, N)  input/output projections (single group)
+    Returns y: (B, L, H, P) in x.dtype and, with ``return_state``, the
+    final state (B, H, P, N) in float32.  A ragged L is padded with dt = 0
+    steps (decay 1, no update), whose outputs are dropped.
+
+    The reference's four-operand einsums are contracted pairwise, in this
+    order, so that no (B, nc, Q, Q, H, P) product is ever formed:
+      intra  = ((C.B^T) * Ldec) @_k (dt * x)
+      states = ((decay_to_end * dt) * x) @_k B
+      inter  = (C @_n entering) * exp(dA_cum)
+    """
+    Bsz, L, H, P = x.shape
+    N = Bmat.shape[-1]
+    if L % chunk:
+        pad = chunk - L % chunk
+        out = ssd_chunked_ref(
+            F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(Bmat, (0, 0, 0, pad)), F.pad(Cmat, (0, 0, 0, pad)),
+            chunk=chunk, initial_state=initial_state,
+            return_state=return_state)
+        if return_state:
+            return out[0][:, :L], out[1]
+        return out[:, :L]
+    nc = L // chunk
+    f32 = torch.float32
+
+    xc = x.reshape(Bsz, nc, chunk, H, P).to(f32)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    Bc = Bmat.reshape(Bsz, nc, chunk, N).to(f32)
+    Cc = Cmat.reshape(Bsz, nc, chunk, N).to(f32)
+
+    dA = dtc * A.to(f32)[None, None, None, :]            # (B, nc, Q, H) <= 0
+    dA_cum = torch.cumsum(dA, dim=2)                     # within-chunk cumsum
+
+    # intra-chunk (quadratic in chunk): causal decay matrix per head
+    Ldec = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    # exp where k <= q, 0 above the diagonal (in place: the serve shape's
+    # (B, nc, Q, Q, H) tile is ~1.9 GB)
+    Ldec.exp_().masked_fill_(~causal[None, None, :, :, None], 0.0)
+    cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # (B,nc,Q,Q)
+    Ldec.mul_(cb[..., None])                             # (B,nc,Q,K,H)
+    u = dtc[..., None] * xc                              # (B,nc,K,H,P)
+    intra = torch.einsum("bcqkh,bckhp->bcqhp", Ldec, u)
+    del Ldec, u
+
+    # chunk-final states
+    decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)      # (B,nc,Q,H)
+    w = (decay_to_end * dtc)[..., None] * xc                     # (B,nc,K,H,P)
+    states = torch.einsum("bckhp,bckn->bchpn", w, Bc)            # (B,nc,H,P,N)
+    del w
+
+    # inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])                 # (B,nc,H)
+    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if initial_state is None else initial_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)                           # state *entering* chunk c
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    entering = torch.stack(entering, dim=1)                      # (B,nc,H,P,N)
+
+    # contribution of the entering state within each chunk
+    state_decay = torch.exp(dA_cum)                              # (B,nc,Q,H)
+    inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, entering) \
+        * state_decay[..., None]
+
+    y = (intra + inter).reshape(Bsz, L, H, P).to(x.dtype)
+    if return_state:
+        return y, s
+    return y
+
+
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
+                    dt_t: torch.Tensor, A: torch.Tensor, B_t: torch.Tensor,
+                    C_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence.
+
+    state: (B, H, P, N); x_t: (B, H, P); dt_t: (B, H); B_t, C_t: (B, N).
+    Returns (y_t (B, H, P) in x_t.dtype, new_state float32).
+    """
+    f32 = torch.float32
+    dA = torch.exp(dt_t.to(f32) * A.to(f32)[None, :])            # (B, H)
+    upd = (dt_t.to(f32)[:, :, None] * x_t.to(f32))[..., None] \
+        * B_t.to(f32)[:, None, None, :]                         # (B,H,P,N)
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_t.to(f32))
+    return y.to(x_t.dtype), new_state
+
+
+def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bmat: torch.Tensor, Cmat: torch.Tensor,
+                       initial_state: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token SSD oracle used to validate the chunked form."""
+    Bsz, L, H, P = x.shape
+    N = Bmat.shape[-1]
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    ys = []
+    for t in range(L):
+        y, state = ssd_decode_step(state, x[:, t], dt[:, t], A,
+                                   Bmat[:, t], Cmat[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1), state

@@ -1,0 +1,214 @@
+"""Model assembly for the hybrid family (Zamba2: a Mamba2 stack with one
+weight-shared attention(+MLP) block applied after every k-th layer) and the
+plain Mamba2 stack, inference only: ``forward``, ``prefill`` and
+``decode`` as in ``repro.models.model.Model``.
+
+The layers are ``nn.Module``s run in a Python loop (the reference scans a
+stacked tree); parameters keep the reference's names, so
+``params.load_reference_params`` carries a JAX parameter tree over.  The
+decode cache keeps the reference's stacked layout, and ``prefill`` and
+``decode`` update it in place and return it.  Other families raise and wait
+in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device, resolve_use_kernel
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import InitCtx, init_params
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, ctx: InitCtx):
+        super().__init__()
+        self.ln = ctx.param("ln", (cfg.d_model,), init="ones")
+        self.mixer = ssm_mod.mamba2_init(cfg, ctx)
+
+
+class DenseLayer(nn.Module):
+    """Pre-norm attention + SwiGLU MLP (the hybrid's shared block)."""
+
+    def __init__(self, cfg: ModelConfig, ctx: InitCtx):
+        super().__init__()
+        self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
+        self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
+        self.attn = attn.gqa_init(cfg, ctx)
+        self.ffn = moe_mod.ffn_init(cfg, ctx)
+
+
+def _dense_layer_fwd(p: DenseLayer, x: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor, mode: str, cache=None):
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if mode == "train":
+        a, new_cache = attn.gqa_forward(p.attn, h, cfg, positions), None
+    else:
+        fwd = {"prefill": attn.gqa_prefill, "decode": attn.gqa_decode}[mode]
+        a, new_cache = fwd(p.attn, h, cfg, positions, cache)
+    x = x + a
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    return x + moe_mod.ffn_forward(p.ffn, h), new_cache
+
+
+def _at(tree: dict, i: int) -> dict:
+    """Views of entry ``i`` of a stacked cache (writes reach the stack)."""
+    return {k: v[i] for k, v in tree.items()}
+
+
+class Model(nn.Module):
+    """A hybrid or plain Mamba2 language model on ``device`` (default: the
+    card; raises without one unless ``device="cpu"``).  Parameters are
+    allocated uninitialised; ``init`` fills them from a seed, and
+    ``params.load_reference_params`` from the JAX package's tree.
+    ``cfg.use_kernel`` None resolves to the kernels on CUDA."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.rwkv or cfg.family not in ("ssm", "hybrid") or cfg.n_codebooks \
+                or cfg.vision_stub:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported to "
+                "repro_torch; ROADMAP.md, queue 1, lists where it waits")
+        dev = resolve_device(device)
+        cfg = dataclasses.replace(
+            cfg, use_kernel=resolve_use_kernel(cfg.use_kernel, dev))
+        self.cfg = cfg
+        self.device = dev
+        ctx = InitCtx(cfg.dtype, dev)
+        # the reference's ``embed`` leaf (``embed`` is the method here)
+        self.embedding = ctx.param("embed", (cfg.vocab_size, cfg.d_model),
+                                   scale=0.02)
+        self.ln_f = ctx.param("ln_f", (cfg.d_model,), init="ones")
+        if not cfg.tie_embeddings:
+            self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
+                                  scale=0.02)
+        stack = InitCtx(cfg.dtype, dev, stack=cfg.n_layers)
+        self.layers = nn.ModuleList(MambaLayer(cfg, stack)
+                                    for _ in range(cfg.n_layers))
+        if cfg.hybrid_attn_every:
+            self.shared_attn = DenseLayer(cfg, ctx)
+
+    # ------------------------------ init ------------------------------ #
+    def init(self, seed: int = 0) -> "Model":
+        """Fill every parameter by the reference's init rule from a
+        ``torch.Generator`` on the model's device seeded with ``seed``."""
+        init_params(self, torch.Generator(device=self.device).manual_seed(seed))
+        return self
+
+    # --------------------------- embedding ---------------------------- #
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embedding[tokens]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
+        head = self.embedding.T if self.cfg.tie_embeddings else self.head
+        return x @ head
+
+    def _positions(self, tokens: torch.Tensor, offset: int = 0):
+        B, S = tokens.shape[0], tokens.shape[1]
+        pos = torch.arange(S, device=tokens.device)[None, :] + offset
+        return pos.expand(B, S)
+
+    def _shared_due(self, i: int) -> bool:
+        k = self.cfg.hybrid_attn_every
+        return bool(k) and (i + 1) % k == 0
+
+    # ----------------------------- forward ----------------------------- #
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor):
+        """tokens (B, S) -> (logits (B, S, V), aux 0.0): the reference's
+        training forward, without autograd."""
+        cfg = self.cfg
+        x = self.embed(tokens)
+        positions = self._positions(tokens)
+        for i, layer in enumerate(self.layers):
+            x = x + ssm_mod.mamba2_forward(
+                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
+            if self._shared_due(i):
+                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
+                                        "train")
+        return self.logits(x), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+    # ------------------------------ cache ------------------------------ #
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Per-layer decoding state, stacked along a leading layers axis:
+        ``layers`` {ssm (n, B, H, P, N) f32, conv (n, B, K-1, conv_dim)}
+        and, for the hybrid, ``shared_attn`` {k, v (n_attn, B, L, Hkv, hd),
+        len (n_attn, 1) int32}, one KV cache per application of the shared
+        block."""
+        cfg = self.cfg
+        cache = {"layers": ssm_mod.mamba2_state_init(
+            cfg, batch, device=self.device, n=cfg.n_layers)}
+        if cfg.hybrid_attn_every:
+            cache["shared_attn"] = attn.gqa_cache_init(
+                cfg, batch, max_len, device=self.device,
+                n=cfg.n_layers // cfg.hybrid_attn_every)
+        return cache
+
+    # ----------------------------- prefill ----------------------------- #
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: dict):
+        """Full-sequence forward that also fills the decode cache (in
+        place).  Returns (last-position logits (B, 1, V), cache)."""
+        cfg = self.cfg
+        x = self.embed(tokens)
+        positions = self._positions(tokens)
+        layers = cache["layers"]
+        attn_idx = 0
+        for i, layer in enumerate(self.layers):
+            h, ssm_state, conv_state = ssm_mod.mamba2_forward(
+                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                return_state=True)
+            x = x + h
+            layers["ssm"][i].copy_(ssm_state)
+            layers["conv"][i].copy_(conv_state)
+            if self._shared_due(i):
+                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
+                                        "prefill",
+                                        _at(cache["shared_attn"], attn_idx))
+                attn_idx += 1
+        return self.logits(x[:, -1:]), cache
+
+    # ------------------------------ decode ----------------------------- #
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, cache: dict):
+        """Single-token decode step.  tokens: (B, 1).  Returns (logits
+        (B, 1, V), cache), the cache updated in place."""
+        cfg = self.cfg
+        x = self.embed(tokens)
+        positions = None
+        if cfg.hybrid_attn_every:
+            # a copy: the shared block's first application bumps len
+            pos = cache["shared_attn"]["len"][0, 0].clone()
+            positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+        layers = cache["layers"]
+        attn_idx = 0
+        for i, layer in enumerate(self.layers):
+            h, ssm_state, conv_state = ssm_mod.mamba2_decode(
+                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                layers["ssm"][i], layers["conv"][i])
+            x = x + h
+            layers["ssm"][i].copy_(ssm_state)
+            layers["conv"][i].copy_(conv_state)
+            if self._shared_due(i):
+                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
+                                        "decode",
+                                        _at(cache["shared_attn"], attn_idx))
+                attn_idx += 1
+        return self.logits(x), cache
+
+
+def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0
+                ) -> Model:
+    """A model on ``device``, filled from ``seed`` (None: left
+    uninitialised, for ``load_reference_params``)."""
+    model = Model(cfg, device)
+    return model if seed is None else model.init(seed)

@@ -18,9 +18,14 @@ from repro_torch.core import (
 )
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.configs import get_config
 from repro_torch.kernels.cluster_assign import cluster_assign_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.spline_fit import nat_spline_fit_cuda
+from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
+from repro_torch.launch import serve
+from repro_torch.models.model import Model, build_model
 from repro_torch.netsim import ParamBounds, make_dataset
 
 REPO = Path(__file__).resolve().parents[1]
@@ -70,7 +75,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 44
+    assert int(out.stdout.strip().splitlines()[-1]) >= 58
 
 
 # ------------------------------------------------------------------ #
@@ -152,6 +157,39 @@ def test_ops_route_by_tensor_device_and_cuda_wrappers_refuse_cpu_tensors():
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="CUDA"):
         batched_predict_argmax_cuda(values, idx)
+    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 16)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q, q),
+                       ref.attention_ref(q, q, q))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    x = torch.from_numpy(rng.normal(size=(1, 8, 2, 4)).astype(np.float32))
+    dt = torch.full((1, 8, 2), 0.1)
+    A = -torch.ones(2)
+    Bm = torch.from_numpy(rng.normal(size=(1, 8, 3)).astype(np.float32))
+    assert torch.equal(ops.ssd_scan(x, dt, A, Bm, Bm, chunk=4),
+                       ref.ssd_chunked_ref(x, dt, A, Bm, Bm, chunk=4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(x, dt, A, Bm, Bm, chunk=4)
+
+
+def test_serving_entry_points_default_to_the_card(no_cuda, capsys):
+    """The model, its prompts and the serve launcher run on the card
+    unless the CPU is asked for by name."""
+    cfg = get_config("zamba2-7b", "smoke")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    with pytest.raises(RuntimeError):
+        build_model(cfg)
+    with pytest.raises(RuntimeError):
+        serve.make_prompts(cfg, 2, 4)
+    with pytest.raises(RuntimeError):
+        serve.main(["--arch", "zamba2-7b", "--variant", "smoke"])
+    model = build_model(cfg, "cpu")
+    assert model.cfg.use_kernel is False and model.device.type == "cpu"
+    res = serve.main(["--arch", "zamba2-7b", "--device", "cpu", "--batch",
+                      "1", "--prompt-len", "4", "--tokens", "2"])
+    assert res.tokens.shape == (1, 2)
+    assert "device: cpu" in capsys.readouterr().out
 
 
 def _smoke(cwd):

@@ -1,0 +1,511 @@
+"""The LM stack's kernels and layers in the port against the JAX package.
+
+On the CPU: the plain-torch twins in ``repro_torch.kernels.ref`` (attention,
+the blocked attention, the chunked and sequential SSD, the one-token SSD
+step) and ``ops.decode_attention`` against ``repro.kernels.ref`` /
+``repro.kernels.ops`` in float32; the port's dispatch (``ops.flash_attention``
+and ``ops.ssd_scan``, whose CPU route is the plain version) against the
+Pallas kernels in interpret mode at ``tests/test_kernels.py``'s shapes; and
+the layer twins (``rms_norm``, ``apply_rope``, ``_causal_conv``, one Mamba2
+and one GQA block) on the same weights.  On the card (``cuda`` marker): the
+hand-written CUDA kernels against their plain versions.
+
+Tolerances, float32: the twins repeat the reference's operations, with
+sums taken in another order (the SSD's four-operand einsums are contracted
+pairwise), so 2e-5 (attention, norms, rope) and 1e-4 (SSD, whose terms
+pass through exp and sums over 16-256 steps); against the Pallas kernels
+``tests/test_kernels.py``'s own tolerances (attention 2e-5 / bf16 2e-2,
+SSD 1e-4 / bf16 5e-2).  On the card the kernels keep float32 probabilities
+and the plain attention rounds them to v's dtype (the reference oracle's
+``probs.astype(v.dtype)``), so in bf16 the two differ by that rounding
+(2^-9 relative per probability) plus the output's own rounding to bf16;
+the bound below is 2^-6 of max |v|.  In float32 they differ only in the
+order of sums: 1e-4 of max |v|.  The SSD kernel accumulates in float32 in
+another order than the plain version's batched products: 1e-4 of the
+output's scale in float32, and in bf16 the output's rounding (2^-8 of the
+scale, with margin 2^-6).
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as tattn
+from repro_torch.models import ssm as tssm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, rms_norm, rope_freqs
+from repro_torch.models.params import InitCtx
+
+
+@pytest.fixture(scope="module")
+def jax_pkg():
+    """The JAX package's oracles and Pallas kernels; imported here, so that
+    the card tests also run on a machine that has the port but no jax:
+    ``python -m pytest -q -m cuda tests/test_torch_lm_kernels.py``."""
+    from types import SimpleNamespace
+
+    pytest.importorskip("jax")
+
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.kernels.ssm_scan import ssd_pallas
+    import jax.numpy as jnp
+    return SimpleNamespace(ref=jref, ops=jops, fa=flash_attention_pallas,
+                           ssd=ssd_pallas, jnp=jnp)
+
+
+@pytest.fixture
+def cuda():
+    """The card; skips where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+def _both(a, dtype="float32"):
+    """The same values as a jax array and a torch tensor (bf16 rounds the
+    float32 values the same way in both)."""
+    import jax.numpy as jnp
+    a = np.asarray(a, np.float32)
+    if dtype == "bfloat16":
+        return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).bfloat16()
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+# ----------------------------- attention ----------------------------- #
+ATTN_REF_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
+    (1, 16, 16, 4, 2, 8, True, 0, 0),
+    (2, 12, 20, 6, 2, 16, True, 0, 8),       # GQA, q_offset = Sk - Sq
+    (1, 24, 24, 2, 2, 8, True, 5, 0),        # sliding window
+    (1, 10, 30, 4, 1, 8, False, 0, 0),       # non-causal
+    (1, 9, 13, 2, 1, 16, True, 4, 30),       # rows that see no key
+    (1, 7, 11, 3, 3, 112, True, 3, 4),       # zamba2's head_dim, ragged
+]
+
+
+@pytest.mark.parametrize("case", ATTN_REF_CASES)
+def test_attention_ref_twin_matches_reference(jax_pkg, case):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, qo = case
+    rng = np.random.default_rng(sum(case[:6]))
+    jq, tq = _both(rng.normal(size=(B, Sq, Hq, D)))
+    jk, tk = _both(rng.normal(size=(B, Sk, Hkv, D)))
+    jv, tv = _both(rng.normal(size=(B, Sk, Hkv, D)))
+    want = jax_pkg.ref.attention_ref(jq, jk, jv, causal=causal,
+                                     window=window, q_offset=qo)
+    got = ref.attention_ref(tq, tk, tv, causal=causal, window=window,
+                            q_offset=qo)
+    assert got.shape == (B, Sq, Hq, D) and got.dtype == torch.float32
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 32, 64, 4, 2, 8, True, 0, 32, 16, 16),
+    (2, 64, 64, 2, 2, 16, True, 12, 0, 32, 16),
+    (1, 32, 32, 4, 4, 8, False, 0, 0, 8, 32),
+])
+def test_attention_blocked_twin_matches_reference(jax_pkg, case):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, qo, bq, bk = case
+    rng = np.random.default_rng(Sq + Sk + D)
+    jq, tq = _both(rng.normal(size=(B, Sq, Hq, D)))
+    jk, tk = _both(rng.normal(size=(B, Sk, Hkv, D)))
+    jv, tv = _both(rng.normal(size=(B, Sk, Hkv, D)))
+    kw = dict(causal=causal, window=window, q_offset=qo, bq=bq, bk=bk)
+    want = jax_pkg.ref.attention_blocked(jq, jk, jv, **kw)
+    got = ref.attention_blocked(tq, tk, tv, **kw)
+    _close(got, want, 2e-5)
+    with pytest.raises(ValueError, match="Sq % bq"):
+        ref.attention_blocked(tq[:, :-1], tk, tv, **kw)
+
+
+def test_plain_attention_switches_to_blocked_above_2048_keys(jax_pkg,
+                                                             monkeypatch):
+    """The CPU route keeps the reference's switch: above 2048 keys the
+    blocked loop, which must then agree with the reference's route."""
+    rng = np.random.default_rng(5)
+    Sq, Sk = 128, 3072
+    jq, tq = _both(rng.normal(size=(1, Sq, 2, 16)))
+    jk, tk = _both(rng.normal(size=(1, Sk, 1, 16)))
+    jv, tv = _both(rng.normal(size=(1, Sk, 1, 16)))
+    calls = []
+    monkeypatch.setattr(ref, "attention_blocked", functools.partial(
+        lambda f, *a, **k: calls.append(1) or f(*a, **k),
+        ref.attention_blocked))
+    got = ops.flash_attention(tq, tk, tv, q_offset=Sk - Sq)
+    want = jax_pkg.ops.flash_attention(jq, jk, jv, q_offset=Sk - Sq)
+    assert calls == [1]
+    assert ops.BLOCKED_ATTENTION_THRESHOLD == jax_pkg.ops.BLOCKED_ATTENTION_THRESHOLD
+    _close(got, want, 2e-5)
+
+
+ATTN_PALLAS_CASES = [   # tests/test_kernels.py's shapes
+    (1, 128, 128, 4, 2, 64, True, 0, "float32"),
+    (2, 256, 256, 4, 4, 128, True, 0, "float32"),
+    (1, 128, 128, 8, 2, 64, True, 64, "float32"),
+    (1, 128, 256, 4, 2, 64, False, 0, "float32"),
+    (1, 256, 256, 2, 1, 128, True, 128, "float32"),
+    (2, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_PALLAS_CASES)
+def test_flash_attention_dispatch_matches_pallas_interpret(jax_pkg, case):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, dtype = case
+    rng = np.random.default_rng(Sq * Hq + D)
+    jq, tq = _both(rng.normal(size=(B, Sq, Hq, D)), dtype)
+    jk, tk = _both(rng.normal(size=(B, Sk, Hkv, D)), dtype)
+    jv, tv = _both(rng.normal(size=(B, Sk, Hkv, D)), dtype)
+    want = jax_pkg.fa(jq, jk, jv, causal=causal, window=window,
+                      q_offset=Sk - Sq, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              q_offset=Sk - Sq)
+    assert got.dtype == tq.dtype
+    _close(got, want, 2e-2 if dtype == "bfloat16" else 2e-5)
+
+
+@pytest.mark.parametrize("L_valid", [1, 5, 12])
+def test_decode_attention_matches_reference(jax_pkg, L_valid):
+    jnp = jax_pkg.jnp
+    rng = np.random.default_rng(L_valid)
+    B, L, Hq, Hkv, D = 2, 12, 4, 2, 8
+    jq, tq = _both(rng.normal(size=(B, 1, Hq, D)))
+    jk, tk = _both(rng.normal(size=(B, L, Hkv, D)))
+    jv, tv = _both(rng.normal(size=(B, L, Hkv, D)))
+    valid = np.arange(L)[None, :] < L_valid
+    want = jax_pkg.ops.decode_attention(jq, jk, jv, jnp.asarray(valid))
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(valid))
+    _close(got, want, 2e-5)
+
+
+# ------------------------------ SSD ---------------------------------- #
+def _ssd_inputs(B, L, H, P, N, seed, dtype="float32", init=False):
+    rng = np.random.default_rng(seed)
+    out = {
+        "x": _both(rng.normal(size=(B, L, H, P)), dtype),
+        "dt": _both(rng.uniform(0.01, 0.2, (B, L, H))),
+        "A": _both(-rng.uniform(0.5, 2.0, (H,))),
+        "B": _both(rng.normal(size=(B, L, N))),
+        "C": _both(rng.normal(size=(B, L, N))),
+    }
+    if init:
+        out["s0"] = _both(rng.normal(size=(B, H, P, N)))
+    return out
+
+
+def _args(inp, side):
+    i = 0 if side == "jax" else 1
+    return (inp["x"][i], inp["dt"][i], inp["A"][i], inp["B"][i], inp["C"][i])
+
+
+SSD_REF_CASES = [
+    # (B, L, H, P, N, chunk, init)
+    (2, 64, 4, 8, 16, 16, False),
+    (1, 80, 2, 8, 16, 32, True),             # ragged L, initial state
+    (2, 37, 3, 4, 8, 8, True),               # ragged, several chunks
+    (1, 20, 2, 16, 8, 64, False),            # one ragged chunk
+]
+
+
+@pytest.mark.parametrize("case", SSD_REF_CASES)
+def test_ssd_chunked_twin_matches_reference(jax_pkg, case):
+    B, L, H, P, N, chunk, init = case
+    inp = _ssd_inputs(B, L, H, P, N, seed=L + H, init=init)
+    s0 = inp["s0"] if init else (None, None)
+    yj, sj = jax_pkg.ref.ssd_chunked_ref(*_args(inp, "jax"), chunk=chunk,
+                                         initial_state=s0[0],
+                                         return_state=True)
+    yt, st = ref.ssd_chunked_ref(*_args(inp, "torch"), chunk=chunk,
+                                 initial_state=s0[1], return_state=True)
+    assert yt.shape == (B, L, H, P) and st.shape == (B, H, P, N)
+    assert st.dtype == torch.float32
+    _close(yt, yj, 1e-4)
+    _close(st, sj, 1e-4)
+    only_y = ref.ssd_chunked_ref(*_args(inp, "torch"), chunk=chunk,
+                                 initial_state=s0[1])
+    assert torch.equal(only_y, yt)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_sequential_and_decode_step_match_reference(jax_pkg, init):
+    inp = _ssd_inputs(2, 24, 3, 4, 8, seed=7, init=init)
+    s0 = inp["s0"] if init else (None, None)
+    yj, sj = jax_pkg.ref.ssd_sequential_ref(*_args(inp, "jax"),
+                                            initial_state=s0[0])
+    yt, st = ref.ssd_sequential_ref(*_args(inp, "torch"), initial_state=s0[1])
+    _close(yt, yj, 1e-4)
+    _close(st, sj, 1e-4)
+    # the chunked twin agrees with the sequential one
+    yc, sc = ref.ssd_chunked_ref(*_args(inp, "torch"), chunk=8,
+                                 initial_state=s0[1], return_state=True)
+    _close(yc, yt, 1e-4)
+    _close(sc, st, 1e-4)
+
+
+SSD_PALLAS_CASES = [    # tests/test_kernels.py's shapes
+    (2, 64, 4, 8, 16, 16, "float32"),
+    (1, 128, 2, 16, 32, 32, "float32"),
+    (1, 96, 3, 8, 8, 32, "float32"),
+    (2, 80, 2, 8, 16, 32, "float32"),
+    (1, 64, 4, 8, 16, 16, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", SSD_PALLAS_CASES)
+def test_ssd_scan_dispatch_matches_pallas_interpret(jax_pkg, case):
+    B, L, H, P, N, chunk, dtype = case
+    inp = _ssd_inputs(B, L, H, P, N, seed=L * H, dtype=dtype)
+    want = jax_pkg.ssd(*_args(inp, "jax"), chunk=chunk, interpret=True)
+    got = ops.ssd_scan(*_args(inp, "torch"), chunk=chunk)
+    assert got.dtype == inp["x"][1].dtype
+    _close(got, want, 5e-2 if dtype == "bfloat16" else 1e-4)
+
+
+# ------------------------------ layers -------------------------------- #
+def test_rms_norm_and_rope_match_reference(jax_pkg):
+    jnp = jax_pkg.jnp
+    from repro.models import layers as jl
+    rng = np.random.default_rng(3)
+    jx, tx = _both(rng.normal(size=(2, 5, 64)) * 3.0)
+    jw, tw = _both(rng.normal(size=(64,)))
+    _close(rms_norm(tx, tw, 1e-5), jl.rms_norm(jx, jw, 1e-5), 2e-5)
+    np.testing.assert_array_equal(rope_freqs(112, 1e4), jl.rope_freqs(112, 1e4))
+    # zamba2's head_dim 112: two 56-wide halves, not a power of two
+    jq, tq = _both(rng.normal(size=(2, 7, 3, 112)))
+    pos = rng.integers(0, 4096, (2, 7))
+    got = apply_rope(tq, torch.from_numpy(pos), 1e4)
+    want = jl.apply_rope(jq, jnp.asarray(pos), 1e4)
+    _close(got, want, 2e-5 * 4096)   # angles up to 4096 rad in float32
+    jb, tb = _both(rng.normal(size=(2, 7, 3, 112)), "bfloat16")
+    gb = apply_rope(tb, torch.from_numpy(pos[:, :7] % 64), 1e4)
+    wb = jl.apply_rope(jb, jnp.asarray(pos[:, :7] % 64), 1e4)
+    assert gb.dtype == torch.bfloat16
+    _close(gb, wb, 2e-2)
+
+
+def test_causal_conv_matches_reference(jax_pkg):
+    from repro.models import ssm as jssm
+    rng = np.random.default_rng(4)
+    jx, tx = _both(rng.normal(size=(2, 9, 12)))
+    jw, tw = _both(rng.normal(size=(4, 12)))
+    jb, tb = _both(rng.normal(size=(12,)))
+    _close(tssm._causal_conv(tx, tw, tb), jssm._causal_conv(jx, jw, jb), 2e-5)
+
+
+def _cfg(dtype=torch.float32, **kw):
+    base = dict(name="t", family="hybrid", n_layers=2, d_model=32, n_heads=4,
+                n_kv_heads=2, d_ff=64, vocab_size=64, ssm_state=8,
+                ssm_head_dim=8, ssm_expand=2, ssm_chunk=8,
+                hybrid_attn_every=2, rope_theta=1e4, dtype=dtype,
+                use_kernel=False)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def _jcfg(cfg):
+    import jax.numpy as jnp
+    from repro.models.config import ModelConfig as JConfig
+    kw = {f: getattr(cfg, f) for f in ("name", "family", "n_layers", "d_model",
+                                       "n_heads", "n_kv_heads", "d_ff",
+                                       "vocab_size", "ssm_state",
+                                       "ssm_head_dim", "ssm_expand",
+                                       "ssm_chunk", "hybrid_attn_every",
+                                       "rope_theta", "sliding_window")}
+    return JConfig(**kw, dtype=jnp.float32)
+
+
+def _fill(module, seed):
+    """Random weights for a block, returned as {name: numpy} too."""
+    rng = np.random.default_rng(seed)
+    vals = {}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            a = (rng.normal(size=p.shape) * 0.3).astype(np.float32)
+            if name in ("A_log", "dt_bias"):
+                a = a * 0.5
+            p.copy_(torch.from_numpy(a))
+            vals[name] = a
+    return vals
+
+
+def test_mamba2_block_matches_reference(jax_pkg):
+    jnp = jax_pkg.jnp
+    from repro.models import ssm as jssm
+    cfg = _cfg()
+    jcfg = _jcfg(cfg)
+    blk = tssm.mamba2_init(cfg, InitCtx(torch.float32, torch.device("cpu")))
+    p = {k: jnp.asarray(v) for k, v in _fill(blk, 11).items()}
+    rng = np.random.default_rng(12)
+    jx, tx = _both(rng.normal(size=(2, 13, cfg.d_model)))
+    oj, sj, cj = jssm.mamba2_forward(p, jx, jcfg, return_state=True)
+    ot, st, ct = tssm.mamba2_forward(blk, tx, cfg, return_state=True)
+    _close(ot, oj, 1e-4)
+    _close(st, sj, 1e-4)
+    _close(ct, cj, 1e-5)
+    jx1, tx1 = _both(rng.normal(size=(2, 1, cfg.d_model)))
+    oj, sj2, cj2 = jssm.mamba2_decode(p, jx1, jcfg, sj, cj)
+    ot, st2, ct2 = tssm.mamba2_decode(blk, tx1, cfg, st, ct)
+    _close(ot, oj, 1e-4)
+    _close(st2, sj2, 1e-4)
+    _close(ct2, cj2, 1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_gqa_block_matches_reference(jax_pkg, window):
+    jnp = jax_pkg.jnp
+    from repro.models import attention as ja
+    from repro.models.params import InitCtx as JCtx
+    cfg = _cfg(sliding_window=window)
+    jcfg = _jcfg(cfg)
+    blk = tattn.gqa_init(cfg, InitCtx(torch.float32, torch.device("cpu")))
+    p = {k: jnp.asarray(v) for k, v in _fill(blk, 21).items()}
+    rng = np.random.default_rng(22)
+    S = 10
+    jx, tx = _both(rng.normal(size=(2, S, cfg.d_model)))
+    pos = np.tile(np.arange(S), (2, 1))
+    _close(tattn.gqa_forward(blk, tx, cfg, torch.from_numpy(pos)),
+           ja.gqa_forward(p, jx, jcfg, jnp.asarray(pos)), 2e-5)
+    jcache = ja.gqa_cache_init(jcfg, JCtx(key=None, dtype=jnp.float32,
+                                          abstract=False), "c", 2, S + 4)
+    tcache = tattn.gqa_cache_init(cfg, 2, S + 4, device="cpu")
+    oj, jcache = ja.gqa_prefill(p, jx, jcfg, jnp.asarray(pos), jcache)
+    ot, tcache = tattn.gqa_prefill(blk, tx, cfg, torch.from_numpy(pos), tcache)
+    _close(ot, oj, 2e-5)
+    for key in ("k", "v", "len"):
+        _close(tcache[key], jcache[key], 2e-5)
+    for step in range(3):
+        jx1, tx1 = _both(rng.normal(size=(2, 1, cfg.d_model)))
+        p1 = np.full((2, 1), S + step)
+        oj, jcache = ja.gqa_decode(p, jx1, jcfg, jnp.asarray(p1), jcache)
+        ot, tcache = tattn.gqa_decode(blk, tx1, cfg, torch.from_numpy(p1),
+                                      tcache)
+        _close(ot, oj, 2e-5)
+        for key in ("k", "v", "len"):
+            _close(tcache[key], jcache[key], 2e-5)
+
+
+# ------------------------------ bindings ------------------------------ #
+@pytest.mark.parametrize("module,symbol", [
+    ("flash_attention", "flash_attention_launch"),
+    ("ssm_scan", "ssd_scan_launch")])
+def test_ctypes_binding_matches_the_c_signature(module, symbol):
+    """Each wrapper's ``argtypes`` follow its kernel's ``extern "C"``
+    signature, parameter for parameter (the sources compile only on the
+    card's machine, so this is where a wrong binding shows first)."""
+    import ctypes
+    import importlib
+    import re
+
+    from repro_torch.kernels import _build
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = "\n".join((_build.CSRC / f"{name}.cu").read_text()
+                    for name in _build.SOURCES)
+    sig = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert sig is not None
+    params = [p.strip() for p in sig.group(1).split(",")]
+    want = {"long long": ctypes.c_longlong, "float": ctypes.c_float,
+            "int": ctypes.c_int}
+
+    def kind(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return want[param.rsplit(" ", 1)[0].replace("const ", "")]
+    assert [kind(p) for p in params] == mod.ARGTYPES
+
+
+# ------------------------------ the card ------------------------------ #
+CARD_ATTN_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
+    (1, 128, 128, 4, 2, 64, True, 0, 0),
+    (2, 100, 300, 24, 8, 128, True, 256, 200),   # GQA, window, ragged
+    (1, 77, 77, 2, 1, 112, False, 0, 0),
+    (1, 40, 50, 2, 2, 8, True, 16, 10),
+    (1, 64, 64, 2, 2, 256, True, 0, 0),
+    (1, 10, 10, 2, 2, 16, True, 4, 100),          # rows that see no key
+    (2, 300, 300, 4, 4, 112, True, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CARD_ATTN_CASES)
+def test_flash_attention_kernel_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, Hq, Hkv, D, causal, window, qo = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=qo)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dtype
+    want = ops.plain_attention(q, k, v, causal=causal, window=window,
+                               q_offset=qo)
+    tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-4) * v.abs().max()
+    assert (got.float() - want.float()).abs().max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 64, 4, 8, 16, 16, False), (1, 80, 2, 8, 16, 32, True),
+    (1, 300, 3, 64, 64, 256, True), (2, 2000, 4, 64, 64, 256, True),
+    (1, 50, 2, 16, 8, 1024, True)])
+def test_ssd_scan_kernel_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import ssm_scan
+    B, L, H, P, N, chunk, init = case
+    g = torch.Generator(device=cuda).manual_seed(L + H)
+    x = torch.randn((B, L, H, P), generator=g, device=cuda).to(dtype)
+    Bm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
+    Cm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
+    dt = torch.rand((B, L, H), generator=g, device=cuda) * 0.19 + 0.01
+    A = -(torch.rand((H,), generator=g, device=cuda) * 1.5 + 0.5)
+    s0 = torch.randn((B, H, P, N), generator=g, device=cuda) if init else None
+    before = ssm_scan.launches
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
+                        return_state=True)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1 and y.dtype == dtype
+    yr, sr = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                 initial_state=s0, return_state=True)
+    scale = yr.float().abs().max()
+    tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert (y.float() - yr.float()).abs().max() <= tol
+    assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
+    assert torch.equal(ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                    initial_state=s0), y)
+
+
+@pytest.mark.cuda
+def test_lm_kernels_refuse_what_they_do_not_take_on_card(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+    q = torch.zeros((1, 8, 2, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 8, 3, 16), device=cuda)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="grad"):
+        flash_attention_cuda(q.requires_grad_(), q, q)
+    x = torch.zeros((1, 8, 2, 65), device=cuda)
+    dt = torch.zeros((1, 8, 2), device=cuda)
+    A = torch.zeros((2,), device=cuda)
+    Bm = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_scan_cuda(x, dt, A, Bm, Bm)
+    with pytest.raises(TypeError, match="float32 dt"):
+        ssd_scan_cuda(x[..., :8], dt.double(), A, Bm, Bm)
