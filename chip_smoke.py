@@ -35,9 +35,12 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               prompts on the plain route (``use_kernel=False``, teacher
               forced on the kernel run's tokens); one prefill launches
               exactly 81 ``ssd_scan`` and 13 ``flash_attention``, decode
-              neither.
+              neither;
+7. serve   -- rwkv6-1.6b at full width and depth (24 RWKV6 layers,
+              d_model 2048, 32 heads of 64) the same way; one prefill and
+              every decode step each launch exactly 24 ``rwkv6``.
 
-Phases 3 to 6 are the main path: every kernel's launch count is set to
+Phases 3 to 7 are the main path: every kernel's launch count is set to
 0 just before each and read just after, and a kernel that the path did not
 launch fails the run.  Each ends with one more, profiled run of its fit,
 fleet or decode steps, which reports how much of its wall time the card
@@ -73,7 +76,7 @@ TESTBED_NAMES = ("xsede", "didclab", "didclab-xsede")
 FLEET_N = 256               # fleet_scale's largest admission-controller fleet
 PARITY_N = 8                # its engine-parity and knowledge-service fleets
 SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
-SERVE_ARCH = "zamba2-7b"    # the port's one LM family, at full size
+SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b")   # the port's LM families, full size
 SERVE_BATCH, SERVE_PROMPT = 8, 2048
 SERVE_STEPS = 64            # greedy decode steps after the prefill
 
@@ -186,11 +189,13 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOP_PER_
 
 def _kernel_modules():
     from repro_torch.kernels import (
-        cluster_assign, flash_attention, spline_fit, ssm_scan, transfer_select,
+        cluster_assign, flash_attention, rwkv6, spline_fit, ssm_scan,
+        transfer_select,
     )
     return {"cluster_assign": cluster_assign, "spline_fit": spline_fit,
             "transfer_select": transfer_select,
-            "flash_attention": flash_attention, "ssd_scan": ssm_scan}
+            "flash_attention": flash_attention, "ssd_scan": ssm_scan,
+            "rwkv6": rwkv6}
 
 
 def launch_counts() -> dict[str, int]:
@@ -570,6 +575,112 @@ def phase_kernel_ssd_scan(device) -> dict:
             "replaces": "src/repro/kernels/ssm_scan.py:86", **row}
 
 
+def rwkv6_rel_tol(w, chunk: int, base: float) -> float:
+    """Relative tolerance of the WKV scan: ``base`` for the order of sums,
+    plus the float32 sensitivity of its decays.  Both versions take exp of
+    differences of within-chunk cumsums of w (|w| <= 4: |wcum| <= 64 at
+    chunk 16), each cumsum known to ~8 ulps of its magnitude: 2^-20 |wcum|
+    relative on a decay."""
+    import torch
+    import torch.nn.functional as F
+    B, L, H, K = w.shape
+    wp = F.pad(w.float(), (0, 0, 0, 0, 0, (-L) % chunk))
+    cum = torch.cumsum(wp.reshape(B, -1, chunk, H, K), dim=2)
+    return base + 2.0 ** -20 * cum.abs().max().item()
+
+
+def _rwkv6_case(device, dtype, shape, chunk: int, init: bool, label: str
+                ) -> dict:
+    """Hold ``rwkv6`` to its plain version on random inputs of ``shape`` =
+    (B, L, H, K) (V = K; final state included), with the model's range of
+    decays, and time both."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+
+    B, L, H, K = shape
+    g = torch.Generator(device=device).manual_seed(L + H + chunk)
+    r, k, v = (torch.randn((B, L, H, K), generator=g, device=device).to(dtype)
+               for _ in range(3))
+    # the model's decays: -exp(lora) clamped to [-rwkv_w_clamp, -1e-4]
+    w = torch.clamp(-torch.exp(1.5 * torch.randn((B, L, H, K), generator=g,
+                                                 device=device)), -4.0, -1e-4)
+    u = (0.5 * torch.randn((H, K), generator=g, device=device)).to(dtype)
+    s0 = (torch.randn((B, H, K, K), generator=g, device=device) if init
+          else None)
+    kw = dict(chunk=chunk, initial_state=s0, return_state=True)
+
+    y_k, s_k = rwkv6_cuda(r, k, v, w, u, **kw)
+    torch.cuda.synchronize()
+    y_p, s_p = ref.rwkv6_chunked_ref(r, k, v, w, u, **kw)
+    torch.cuda.synchronize()
+    # Both accumulate in float32, in another order, the kernel with each
+    # pair's decay taken directly and the plain version with it split
+    # across the operands; y is rounded to r's dtype (bf16: 2^-9 relative,
+    # bounded here at 2^-6 of the scale; float32: 1e-4).  The final state
+    # is float32 in both: 1e-4 of its scale.  Each bound adds the decays'
+    # float32 sensitivity (rwkv6_rel_tol).
+    err = (y_k.float() - y_p.float()).abs().max().item()
+    base = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+    tol = rwkv6_rel_tol(w, chunk, base) * y_p.float().abs().max().item()
+    err_s = (s_k - s_p).abs().max().item()
+    tol_s = rwkv6_rel_tol(w, chunk, 1e-4) * s_p.abs().max().item()
+    check(err <= tol and err_s <= tol_s,
+          f"rwkv6 {label} {dtype} disagrees with its plain version: y err "
+          f"{err:.3e} (tol {tol:.3e}), state err {err_s:.3e} (tol {tol_s:.3e})")
+    del y_k, s_k, y_p, s_p
+
+    ms, call_ms = cuda_ms(lambda: rwkv6_cuda(r, k, v, w, u, **kw),
+                          iters=10, reps=5)
+    plain_ms, _ = cuda_ms(lambda: ref.rwkv6_chunked_ref(r, k, v, w, u, **kw),
+                          iters=5, reps=2)
+    # what the kernel's arithmetic needs: per chunk of q live rows, the
+    # q(q-1)/2 pairs' weights (2K, plus K exps) and their product with v
+    # (2V); per row the bonus (3K + 2V), the inter product (2KV) and the
+    # state update (2KV); per chunk the state's decay (KV)
+    lens = [min(chunk, L - t0) for t0 in range(0, L, chunk)]
+    n_flops = B * H * sum(q * (q - 1) // 2 * (3 * K + 2 * K)
+                          + q * (3 * K + 2 * K + 4 * K * K) + K * K
+                          for q in lens)
+    n_bytes = (r.element_size() * 4 * r.numel() + 4 * w.numel()
+               + u.element_size() * u.numel()
+               + 4 * B * H * K * K * (2 if init else 1))
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    print(f"[kernels] rwkv6 {label} {str(dtype)[6:]} B={B} L={L} H={H} K=V={K} "
+          f"chunk={chunk} initial_state={init}: max_abs_err(y)={err:.3e} "
+          f"(tol {tol:.3e}) max_abs_err(state)={err_s:.3e} (tol {tol_s:.3e}); "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"({bound_by}, {n_flops:.3e} f32 flop, {n_bytes:.3e} B); per eager "
+          f"call kernel {call_ms:.4f} ms; library_ms: none (no one PyTorch "
+          f"call runs the WKV scan)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_kernel_rwkv6(device) -> dict:
+    """At the serve path's prefill shape (rwkv6-1.6b: B = 8, L = 2048,
+    H = 32, K = V = 64, chunk 16, from a zero state), at its decode shape
+    (L = 1, chunk 1, from a carried state) and at a ragged L = 2000 with an
+    initial state, final state held in each, in bf16 and f32; the row
+    reported is the prefill shape in bf16, the path's dtype.  The WKV
+    arithmetic is float32 whatever the inputs' dtype, so the bound takes
+    the float32 peak."""
+    import torch
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        r = _rwkv6_case(device, dtype, (SERVE_BATCH, SERVE_PROMPT, 32, 64), 16,
+                        False, "prefill shape")
+        row = row or r
+        _rwkv6_case(device, dtype, (SERVE_BATCH, 1, 32, 64), 1, True,
+                    "decode shape")
+        _rwkv6_case(device, dtype, (2, 2000, 32, 64), 16, True,
+                    "ragged L, initial state")
+    torch.cuda.empty_cache()
+    return {"name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:79", **row}
+
+
 def phase_offline(device) -> dict[str, int]:
     import torch
     from repro_torch.core.clustering import fit_clusters, label_agreement
@@ -755,16 +866,17 @@ def phase_fleet(device, card_db) -> dict[str, int]:
 
 
 def _checked_kernels(errors: list):
-    """Context: ``ops.flash_attention`` and ``ops.ssd_scan`` replaced by
-    versions that launch the kernel, run its plain version on the same
-    inputs, and append (name, max abs err, tolerance) to ``errors``.  The
-    models look both up in ``ops`` at each call."""
+    """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
+    ``ops.rwkv6_scan`` replaced by versions that launch the kernel, run its
+    plain version on the same inputs, and append (name, max abs err,
+    tolerance) to ``errors``.  The models look them up in ``ops`` at each
+    call."""
     import contextlib
 
     import torch
     from repro_torch.kernels import ops, ref
 
-    fa, ssd = ops.flash_attention, ops.ssd_scan
+    fa, ssd, wkv = ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan
 
     def flash_attention(q, k, v, **kw):
         out = fa(q, k, v, **kw)
@@ -791,14 +903,53 @@ def _checked_kernels(errors: list):
                            * want[1].abs().max().item()))
         return out
 
+    def rwkv6_scan(r, k, v, w, u, **kw):
+        out = wkv(r, k, v, w, u, **kw)
+        want = ref.rwkv6_chunked_ref(r, k, v, w, u, **kw)
+        y, y_p = (out[0], want[0]) if kw.get("return_state") else (out, want)
+        base = 2 ** -6 if r.dtype == torch.bfloat16 else 1e-4
+        chunk = kw["chunk"]
+        errors.append(("rwkv6", (y.float() - y_p.float()).abs().max().item(),
+                       rwkv6_rel_tol(w, chunk, base)
+                       * y_p.float().abs().max().item()))
+        if kw.get("return_state"):
+            errors.append(("rwkv6 state",
+                           (out[1] - want[1]).abs().max().item(),
+                           rwkv6_rel_tol(w, chunk, 1e-4)
+                           * want[1].abs().max().item()))
+        return out
+
     @contextlib.contextmanager
     def swapped():
-        ops.flash_attention, ops.ssd_scan = flash_attention, ssd_scan
+        ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = (
+            flash_attention, ssd_scan, rwkv6_scan)
         try:
             yield
         finally:
-            ops.flash_attention, ops.ssd_scan = fa, ssd
+            ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = fa, ssd, wkv
     return swapped()
+
+
+LM_KERNELS = ("flash_attention", "ssd_scan", "rwkv6")
+
+
+def lm_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
+    """Launches of each LM kernel that ``n_prefill`` prefills and
+    ``n_decode`` decode steps of ``cfg``'s model make: an RWKV6 layer runs
+    ``rwkv6`` in both; a hybrid runs ``ssd_scan`` in each Mamba2 layer's
+    prefill and ``flash_attention`` in each shared block's, and neither in
+    decode."""
+    n = dict.fromkeys(LM_KERNELS, 0)
+    if cfg.rwkv:
+        n["rwkv6"] = cfg.n_layers * (n_prefill + n_decode)
+    else:
+        n["ssd_scan"] = cfg.n_layers * n_prefill
+        n["flash_attention"] = cfg.n_layers // cfg.hybrid_attn_every * n_prefill
+    return n
+
+
+def _lm_counts(counts: dict[str, int]) -> dict[str, int]:
+    return {name: counts[name] for name in LM_KERNELS}
 
 
 def _logit_gap(run, plain) -> tuple[list[float], float, float, float]:
@@ -815,39 +966,58 @@ def _logit_gap(run, plain) -> tuple[list[float], float, float, float]:
 
 
 def _check_on_activations(model, prompts, label: str) -> None:
-    """One prefill with every kernel result held to its plain version on
-    the same inputs (``_checked_kernels``); fails on any miss."""
+    """One prefill and one decode step with every kernel result held to its
+    plain version on the same inputs (``_checked_kernels``); fails on any
+    miss, and unless each launched exactly its ``lm_launches``."""
     import torch
     cfg = model.cfg
     errors: list = []
+    cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 2)
     with _checked_kernels(errors):
-        model.prefill(prompts, model.init_cache(prompts.shape[0],
-                                                prompts.shape[1] + 1))
+        c0 = _lm_counts(launch_counts())
+        model.prefill(prompts, cache)
+        c1 = _lm_counts(launch_counts())
+        model.decode(prompts[:, -1:], cache)
+        c2 = _lm_counts(launch_counts())
     torch.cuda.synchronize()
+    in_prefill = {n: c1[n] - c0[n] for n in LM_KERNELS}
+    in_decode = {n: c2[n] - c1[n] for n in LM_KERNELS}
+    check(in_prefill == lm_launches(cfg, 1, 0)
+          and in_decode == lm_launches(cfg, 0, 1),
+          f"{label}: a prefill launched {in_prefill} and a decode step "
+          f"{in_decode}, not {lm_launches(cfg, 1, 0)} and "
+          f"{lm_launches(cfg, 0, 1)}")
     bad = [e for e in errors if not e[1] <= e[2]]
     worst = {name: max(e[1] / e[2] for e in errors if e[0] == name)
              for name in {e[0] for e in errors}}
-    print(f"[serve] a {label} prefill's {len(errors)} kernel results held to "
-          f"the plain versions on the same activations: worst err/tol "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
-    n_attn = cfg.n_layers // cfg.hybrid_attn_every
-    check(len(errors) == 2 * cfg.n_layers + n_attn and not bad,
+    print(f"[serve {cfg.name}] a {label} prefill's and decode step's "
+          f"{len(errors)} kernel results held to the plain versions on the "
+          f"same activations "
+          f"(launches: prefill {in_prefill}, decode {in_decode}): worst "
+          f"err/tol " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    # a result per launch, and the final state's too where one is returned
+    # (every ssd_scan and rwkv6 launch of the serve path returns it)
+    n_results = sum((1 if name == "flash_attention" else 2) * (c2[name] - c0[name])
+                    for name in LM_KERNELS)
+    check(len(errors) == n_results and not bad,
           f"{label} kernel results on the serve path's activations disagree "
           f"with their plain versions: {bad[:4]}")
 
 
-def phase_serve(device) -> dict[str, int]:
-    """zamba2-7b at full width and depth on the card: 8 prompts of 2048
+def phase_serve(device, arch: str) -> dict[str, int]:
+    """``arch`` at full width and depth on the card: 8 prompts of 2048
     tokens, prefill, then 64 greedy decode steps through the kernels, timed
-    and counted.  Then three checks against the plain route
-    (``use_kernel=False``) on the same weights and prompts:
+    and counted (exactly ``lm_launches``).  Then three checks against the
+    plain route (``use_kernel=False``) on the same weights and prompts:
 
-    - every kernel launch of one bf16 prefill against its plain version on
-      the same activations (gated, the kernels' own tolerances);
+    - every kernel launch of one bf16 prefill and one decode step against
+      its plain version on the same activations (gated, the kernels' own
+      tolerances);
     - the bf16 logits of the two routes, teacher forced on the kernel run's
       tokens (reported, not gated: see the comment there);
-    - the same model in float32: every kernel launch of a prefill against
-      its plain version (gated), and prefill and 8 teacher-forced decode
+    - the same model in float32: every kernel launch of a prefill and a
+      decode step against its plain version (gated), and prefill and 8
+      teacher-forced decode
       steps through both routes, against a bound made of the growth over
       depth measured in the same run (gated).
     """
@@ -858,7 +1028,8 @@ def phase_serve(device) -> dict[str, int]:
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import build_model
 
-    cfg = get_config(SERVE_ARCH, "full")
+    cfg = get_config(arch, "full")
+    tag = f"[serve {cfg.name}]"
     t0 = time.perf_counter()
     model = build_model(cfg, device, seed=0)
     torch.cuda.synchronize()
@@ -879,23 +1050,21 @@ def phase_serve(device) -> dict[str, int]:
     run = serve(model, prompts, n_tokens, keep_logits=True)
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    n_attn = cfg.n_layers // cfg.hybrid_attn_every
-    check(counts["ssd_scan"] == cfg.n_layers
-          and counts["flash_attention"] == n_attn,
+    want = lm_launches(cfg, 1, SERVE_STEPS)
+    check(_lm_counts(counts) == want,
           f"a prefill and {SERVE_STEPS} decode steps launched "
-          f"{counts['ssd_scan']} ssd_scan and {counts['flash_attention']} "
-          f"flash_attention, not {cfg.n_layers} and {n_attn} (prefill only)")
+          f"{_lm_counts(counts)}, not {want}")
     logits = [run.prefill_logits] + run.decode_logits
     check(all(bool(torch.isfinite(lg).all()) for lg in logits)
           and run.prefill_logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
           and run.tokens.shape == (SERVE_BATCH, n_tokens),
           "the serve run's logits are not finite or not of the served shape")
     p50 = run.decode_p50_ms()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters in {str(cfg.dtype)[6:]}, seeded "
           f"on the card in {init_s:.3f} s; warm-up serve (3 tokens) "
           f"{warm_s:.3f} s")
-    print(f"[serve] batch {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens: "
+    print(f"{tag} batch {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens: "
           f"prefill {run.prefill_ms:.3f} ms, decode p50 {p50:.3f} ms over "
           f"{len(run.decode_ms) - 1} steps (first left out; mean "
           f"{statistics.mean(run.decode_ms[1:]):.3f} ms, max "
@@ -913,26 +1082,27 @@ def phase_serve(device) -> dict[str, int]:
             t = torch.argmax(lg, dim=-1)
 
     wall, dev, ops_ = device_profile(more_steps, top=8)
-    print(f"[serve] profiled 4 decode steps: {busy_text(wall, dev)}; top "
+    print(f"{tag} profiled 4 decode steps: {busy_text(wall, dev)}; top "
           f"device ops: {top_text(ops_)}")
     wall, dev, ops_ = device_profile(lambda: model.prefill(
         prompts, model.init_cache(SERVE_BATCH, n_tokens + SERVE_PROMPT + 4)),
         top=8)
-    print(f"[serve] profiled prefill: {busy_text(wall, dev)}; top device "
+    print(f"{tag} profiled prefill: {busy_text(wall, dev)}; top device "
           f"ops: {top_text(ops_)}")
 
-    # 1. every launch of one prefill against its plain version on the same
-    #    activations (the serve path's real inputs, not random ones)
+    # 1. every launch of one prefill and one decode step against its plain
+    #    version on the same activations (the serve path's real inputs, not
+    #    random ones)
     _check_on_activations(model, prompts, "bf16")
 
     # 2. the bf16 routes end to end.  The reference's init gives stacked
-    #    layer weights std 1/sqrt(81), a high-gain stack: check 3 measures
-    #    how much a small relative perturbation of the embeddings grows by
-    #    the logits.  bf16 rounds at 2^-9, so two bf16 routes that round at
-    #    different places (the plain route rounds attention probabilities
-    #    to bf16, as the reference oracle does; the kernels keep them and
-    #    the SSD's sums in float32) can decorrelate by the last layer.  The
-    #    gap is reported; checks 1 and 3 gate.
+    #    layer weights std 1/sqrt(n_layers) (zamba2-7b: 1/9), a high-gain
+    #    stack: check 3 measures how much a small relative perturbation of
+    #    the embeddings grows by the logits.  bf16 rounds at 2^-9, so two
+    #    bf16 routes that round at different places (the plain route rounds
+    #    attention probabilities to bf16, as the reference oracle does; the
+    #    kernels keep them and the scans' sums in float32) can decorrelate by
+    #    the last layer.  The gap is reported; checks 1 and 3 gate.
     model.cfg = dataclasses.replace(model.cfg, use_kernel=False)
     before = launch_counts()
     t0 = time.perf_counter()
@@ -941,7 +1111,7 @@ def phase_serve(device) -> dict[str, int]:
     plain_s = time.perf_counter() - t0
     check(launch_counts() == before, "the plain route launched a kernel")
     errs, scale, agree, agree0 = _logit_gap(run, plain)
-    print(f"[serve] bf16 plain route (teacher forced): {plain_s:.3f} s, "
+    print(f"{tag} bf16 plain route (teacher forced): {plain_s:.3f} s, "
           f"prefill {plain.prefill_ms:.3f} ms, decode p50 "
           f"{plain.decode_p50_ms():.3f} ms; max |logit diff| prefill "
           f"{errs[0]:.4f}, decode {max(errs[1:]):.4f} (step mean "
@@ -957,7 +1127,9 @@ def phase_serve(device) -> dict[str, int]:
     #    growth is measured here, as the plain prefill's logits move when
     #    the embedding table is perturbed by 1e-6 (relative).  The routes'
     #    gap is bounded by that growth of a 1e-6 difference, times
-    #    sqrt(launches a prefill) for the 94 places such differences enter.
+    #    sqrt(launches) for the places such differences enter: the prefill's
+    #    and the decode steps' launches (zamba2-7b: 94, all in the prefill;
+    #    rwkv6-1.6b: 24 in each of the 9 calls).
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     model = build_model(cfg32, device, seed=0)
     _check_on_activations(model, prompts, "float32")
@@ -980,16 +1152,16 @@ def phase_serve(device) -> dict[str, int]:
         model.embedding.copy_(emb)
     growth = ((nudged - plain.prefill_logits).abs().max().item()
               / plain.prefill_logits.abs().max().item() / 1e-6)
-    print(f"[serve] float32 plain prefill with the embeddings perturbed by "
+    print(f"{tag} float32 plain prefill with the embeddings perturbed by "
           f"1e-6 (relative): the last logits move by {growth * 1e-6:.3e} "
           f"of their scale, a growth over depth of {growth:.1f}x")
-    print(f"[serve] float32, kernel route ({k_s:.3f} s; prefill "
+    print(f"{tag} float32, kernel route ({k_s:.3f} s; prefill "
           f"{run.prefill_ms:.3f} ms) against the plain route (prefill "
           f"{plain.prefill_ms:.3f} ms), {steps32} teacher-forced decode steps: "
           f"max |logit diff| prefill {errs[0]:.3e}, decode {max(errs[1:]):.3e}, "
           f"logit scale {scale:.4f} ({100 * max(errs) / scale:.2f}%); greedy "
           f"agreement {100 * agree:.2f}%")
-    n_launch = cfg.n_layers + cfg.n_layers // cfg.hybrid_attn_every
+    n_launch = sum(lm_launches(cfg, 1, steps32).values())
     tol = n_launch ** 0.5 * growth * 1e-6 * scale
     check(max(errs) <= tol,
           f"in float32 the kernel route's logits differ from the plain "
@@ -1026,9 +1198,11 @@ def main() -> int:
     card_db = fleet_db(device)
     rows = [phase_kernel_cluster_assign(device), phase_kernel_spline_fit(device),
             phase_kernel_transfer_select(card_db),
-            phase_kernel_flash_attention(device), phase_kernel_ssd_scan(device)]
+            phase_kernel_flash_attention(device), phase_kernel_ssd_scan(device),
+            phase_kernel_rwkv6(device)]
     paths = [phase_offline(device), phase_tuner(device),
-             phase_fleet(device, card_db), phase_serve(device)]
+             phase_fleet(device, card_db)]
+    paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         check(row["launches"] > 0, f"the main path never launched {row['name']}")

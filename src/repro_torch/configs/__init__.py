@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["zamba2_7b"]
+ARCH_IDS = ["zamba2_7b", "rwkv6_1_6b"]
 
 # canonical dashed names from the assignment table
-ALIASES = {"zamba2-7b": "zamba2_7b"}
+ALIASES = {"zamba2-7b": "zamba2_7b", "rwkv6-1.6b": "rwkv6_1_6b"}
 
 
 def get_config(arch: str, variant: str = "full"):

@@ -127,3 +127,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
                                initial_state=initial_state,
                                return_state=return_state)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, *, chunk: int = 16,
+               initial_state: torch.Tensor | None = None,
+               return_state: bool = False):
+    """RWKV6 WKV over a sequence (``ref.rwkv6_chunked_ref``'s contract):
+    y (B, L, H, V) in r.dtype and, with ``return_state``, the final state
+    (B, H, K, V) f32 -- every RWKV6 layer's prefill and decode step
+    (``models.rwkv``)."""
+    if r.is_cuda:
+        from repro_torch.kernels.rwkv6 import rwkv6_cuda
+        return rwkv6_cuda(r, k, v, w, u, chunk=chunk,
+                          initial_state=initial_state,
+                          return_state=return_state)
+    return ref.rwkv6_chunked_ref(r, k, v, w, u, chunk=chunk,
+                                 initial_state=initial_state,
+                                 return_state=return_state)

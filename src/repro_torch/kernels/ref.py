@@ -7,7 +7,8 @@ nothing on the main path calls them when a card is present.
 ``take_columns`` is the gather they share with ``core.batched``'s plain
 scoring ops.
 
-The LM stack's twins (attention and the Mamba2 SSD scan) follow the JAX
+The LM stack's twins (attention, the Mamba2 SSD scan and the RWKV6 WKV
+scan) follow the JAX
 package's oracles op for op, so that they are the port's oracle as those
 are the reference's: ``attention_ref`` keeps the oracle's rounding of the
 probabilities to ``v``'s dtype before the product with v, which the kernel
@@ -348,5 +349,113 @@ def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for t in range(L):
         y, state = ssd_decode_step(state, x[:, t], dt[:, t], A,
                                    Bmat[:, t], Cmat[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
+# --------------------------------------------------------------------- #
+# RWKV6 (Finch) linear attention with data-dependent decay, chunked
+# --------------------------------------------------------------------- #
+def rwkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, *, chunk: int = 128,
+                      initial_state: torch.Tensor | None = None,
+                      return_state: bool = False):
+    """Chunked RWKV6 WKV computation.
+
+    r, k: (B, L, H, K); v: (B, L, H, V); w: (B, L, H, K) log-decay (<= 0,
+    data-dependent, float32); u: (H, K) bonus for the current token.  State
+    S (B, H, K, V) float32 with recurrence S_t = diag(exp(w_t)) S_{t-1} +
+    k_t v_t^T and output y_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T), in r's
+    dtype.  A ragged L is padded with w = 0 (decay 1) and r = k = 0 steps:
+    the state is unchanged and their outputs are dropped.
+
+    As the reference does, the intra-chunk decay exp(wcum_{t-1} - wcum_s)
+    is split across the two operands, r exp(wcum_{t-1}) and k exp(-wcum_s);
+    both stay inside float32 only while |w| * chunk stays below ~88 (the
+    model clamps |w| to 4 and takes chunk 16).  Every einsum has two
+    operands; the bonus sums r u k over K before it meets v, and the
+    chunk states are carried in a loop over the chunks, as in
+    ``ssd_chunked_ref``.
+    """
+    Bsz, L, H, K = r.shape
+    V = v.shape[-1]
+    if L % chunk:
+        pad = chunk - L % chunk
+        p4 = (0, 0, 0, 0, 0, pad)
+        out = rwkv6_chunked_ref(
+            F.pad(r, p4), F.pad(k, p4), F.pad(v, p4), F.pad(w, p4), u,
+            chunk=chunk, initial_state=initial_state,
+            return_state=return_state)
+        if return_state:
+            return out[0][:, :L], out[1]
+        return out[:, :L]
+    nc = L // chunk
+    f32 = torch.float32
+
+    rc = r.reshape(Bsz, nc, chunk, H, K).to(f32)
+    kc = k.reshape(Bsz, nc, chunk, H, K).to(f32)
+    vc = v.reshape(Bsz, nc, chunk, H, V).to(f32)
+    wc = w.reshape(Bsz, nc, chunk, H, K).to(f32)
+
+    wcum = torch.cumsum(wc, dim=2)                      # within-chunk log-decay
+    ri = rc * torch.exp(wcum - wc)                      # exponent +wcum_{t-1}
+    ki = kc * torch.exp(-wcum)                          # exponent -wcum_s
+    att = torch.einsum("bcthk,bcshk->bchts", ri, ki)    # (B,nc,H,Q,Q)
+    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), -1)
+    att = att.masked_fill(~strict, 0.0)
+    intra = torch.einsum("bchts,bcshv->bcthv", att, vc)
+    # current-token bonus: u replaces the decay for s == t
+    bonus = (rc * u.to(f32)[None, None, None] * kc).sum(-1, keepdim=True) * vc
+
+    # chunk summary: the state update of the whole chunk
+    total = wcum[:, :, -1:]                             # (B,nc,1,H,K)
+    k_tail = kc * torch.exp(total - wcum)               # decay from s to end
+    chunk_state = torch.einsum("bcshk,bcshv->bchkv", k_tail, vc)
+    chunk_decay = torch.exp(total[:, :, 0])             # (B,nc,H,K)
+
+    s = (torch.zeros((Bsz, H, K, V), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)                           # state *entering* chunk c
+        s = s * chunk_decay[:, c, :, :, None] + chunk_state[:, c]
+    entering = torch.stack(entering, dim=1)             # (B,nc,H,K,V)
+
+    inter = torch.einsum("bcthk,bchkv->bcthv", ri, entering)
+    y = (intra + inter + bonus).reshape(Bsz, L, H, V).to(r.dtype)
+    if return_state:
+        return y, s
+    return y
+
+
+def rwkv6_decode_step(state: torch.Tensor, r_t: torch.Tensor,
+                      k_t: torch.Tensor, v_t: torch.Tensor, w_t: torch.Tensor,
+                      u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token RWKV6 step.  state: (B, H, K, V) float32; r, k, w:
+    (B, H, K); v: (B, H, V).  Returns (y (B, H, V) in r_t's dtype, new
+    state float32)."""
+    f32 = torch.float32
+    rt, kt, vt, wt = (a.to(f32) for a in (r_t, k_t, v_t, w_t))
+    kv = kt[..., :, None] * vt[..., None, :]                    # (B,H,K,V)
+    y = torch.einsum("bhk,bhkv->bhv", rt,
+                     state + u.to(f32)[None, :, :, None] * kv)
+    new_state = state * torch.exp(wt)[..., None] + kv
+    return y.to(r_t.dtype), new_state
+
+
+def rwkv6_sequential_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor,
+                         initial_state: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token oracle used to validate the chunked form."""
+    Bsz, L, H, K = r.shape
+    V = v.shape[-1]
+    state = (torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    ys = []
+    for t in range(L):
+        y, state = rwkv6_decode_step(state, r[:, t], k[:, t], v[:, t],
+                                     w[:, t], u)
         ys.append(y)
     return torch.stack(ys, dim=1), state

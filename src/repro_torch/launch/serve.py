@@ -5,6 +5,8 @@
         --variant smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --variant full --batch 8 --prompt-len 2048 --tokens 65
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+        --variant full --batch 8 --prompt-len 2048 --tokens 65
 
 Weights and prompts come from seeded ``torch.Generator``s on the device.
 The run prints the reference's line (prefill ms, decode p50 ms, tok/s) and

@@ -1,7 +1,7 @@
 """Model assembly for the hybrid family (Zamba2: a Mamba2 stack with one
-weight-shared attention(+MLP) block applied after every k-th layer) and the
-plain Mamba2 stack, inference only: ``forward``, ``prefill`` and
-``decode`` as in ``repro.models.model.Model``.
+weight-shared attention(+MLP) block applied after every k-th layer), the
+plain Mamba2 stack and the RWKV6 stack (``cfg.rwkv``), inference only:
+``forward``, ``prefill`` and ``decode`` as in ``repro.models.model.Model``.
 
 The layers are ``nn.Module``s run in a Python loop (the reference scans a
 stacked tree); parameters keep the reference's names, so
@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -31,6 +32,17 @@ class MambaLayer(nn.Module):
         super().__init__()
         self.ln = ctx.param("ln", (cfg.d_model,), init="ones")
         self.mixer = ssm_mod.mamba2_init(cfg, ctx)
+
+
+class RwkvLayer(nn.Module):
+    """Pre-norm time mix and channel mix, both under ``time`` (the
+    reference's ``_rwkv_layer_init``)."""
+
+    def __init__(self, cfg: ModelConfig, ctx: InitCtx):
+        super().__init__()
+        self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
+        self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
+        self.time = rwkv_mod.rwkv6_init(cfg, ctx)
 
 
 class DenseLayer(nn.Module):
@@ -63,7 +75,7 @@ def _at(tree: dict, i: int) -> dict:
 
 
 class Model(nn.Module):
-    """A hybrid or plain Mamba2 language model on ``device`` (default: the
+    """A hybrid, plain Mamba2 or RWKV6 language model on ``device`` (default: the
     card; raises without one unless ``device="cpu"``).  Parameters are
     allocated uninitialised; ``init`` fills them from a seed, and
     ``params.load_reference_params`` from the JAX package's tree.
@@ -71,8 +83,8 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.rwkv or cfg.family not in ("ssm", "hybrid") or cfg.n_codebooks \
-                or cfg.vision_stub:
+        if not (cfg.rwkv or cfg.family in ("ssm", "hybrid")) \
+                or cfg.n_codebooks or cfg.vision_stub:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported to "
                 "repro_torch; ROADMAP.md, queue 1, lists where it waits")
@@ -90,7 +102,8 @@ class Model(nn.Module):
             self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
                                   scale=0.02)
         stack = InitCtx(cfg.dtype, dev, stack=cfg.n_layers)
-        self.layers = nn.ModuleList(MambaLayer(cfg, stack)
+        layer = RwkvLayer if cfg.rwkv else MambaLayer
+        self.layers = nn.ModuleList(layer(cfg, stack)
                                     for _ in range(cfg.n_layers))
         if cfg.hybrid_attn_every:
             self.shared_attn = DenseLayer(cfg, ctx)
@@ -129,6 +142,12 @@ class Model(nn.Module):
         x = self.embed(tokens)
         positions = self._positions(tokens)
         for i, layer in enumerate(self.layers):
+            if cfg.rwkv:
+                x = x + rwkv_mod.rwkv6_time_mix(
+                    layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg)
+                x = x + rwkv_mod.rwkv6_channel_mix(
+                    layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg)
+                continue
             x = x + ssm_mod.mamba2_forward(
                 layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
             if self._shared_due(i):
@@ -143,8 +162,12 @@ class Model(nn.Module):
         ``layers`` {ssm (n, B, H, P, N) f32, conv (n, B, K-1, conv_dim)}
         and, for the hybrid, ``shared_attn`` {k, v (n_attn, B, L, Hkv, hd),
         len (n_attn, 1) int32}, one KV cache per application of the shared
-        block."""
+        block.  For RWKV6, ``layers`` {wkv (n, B, H, K, K) f32, shift_t and
+        shift_c (n, B, d)}, whatever ``max_len``."""
         cfg = self.cfg
+        if cfg.rwkv:
+            return {"layers": rwkv_mod.rwkv6_state_init(
+                cfg, batch, device=self.device, n=cfg.n_layers)}
         cache = {"layers": ssm_mod.mamba2_state_init(
             cfg, batch, device=self.device, n=cfg.n_layers)}
         if cfg.hybrid_attn_every:
@@ -153,15 +176,44 @@ class Model(nn.Module):
                 n=cfg.n_layers // cfg.hybrid_attn_every)
         return cache
 
+    def _rwkv_stack(self, x: torch.Tensor, layers: dict, carry: bool
+                    ) -> torch.Tensor:
+        """The RWKV6 layers, each writing its WKV and token-shift states
+        into the stacked ``layers`` cache in place; with ``carry`` each
+        starts from the states there (decode), else from zeros
+        (prefill)."""
+        cfg = self.cfg
+        for i, layer in enumerate(self.layers):
+            h, wkv, sh_t = rwkv_mod.rwkv6_time_mix(
+                layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
+                shift_state=layers["shift_t"][i] if carry else None,
+                wkv_state=layers["wkv"][i] if carry else None,
+                return_state=True)
+            x = x + h
+            h, sh_c = rwkv_mod.rwkv6_channel_mix(
+                layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
+                shift_state=layers["shift_c"][i] if carry else None,
+                return_state=True)
+            x = x + h
+            for key, new in (("wkv", wkv), ("shift_t", sh_t),
+                             ("shift_c", sh_c)):
+                layers[key][i].copy_(new)
+        return x
+
     # ----------------------------- prefill ----------------------------- #
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict):
         """Full-sequence forward that also fills the decode cache (in
-        place).  Returns (last-position logits (B, 1, V), cache)."""
+        place).  Returns (last-position logits (B, 1, V), cache).  An
+        RWKV6 prefill starts from zero shift and WKV states whatever the
+        cache holds, as the reference's does."""
         cfg = self.cfg
         x = self.embed(tokens)
         positions = self._positions(tokens)
         layers = cache["layers"]
+        if cfg.rwkv:
+            x = self._rwkv_stack(x, layers, carry=False)
+            return self.logits(x[:, -1:]), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_forward(
@@ -184,12 +236,14 @@ class Model(nn.Module):
         (B, 1, V), cache), the cache updated in place."""
         cfg = self.cfg
         x = self.embed(tokens)
+        layers = cache["layers"]
+        if cfg.rwkv:
+            return self.logits(self._rwkv_stack(x, layers, carry=True)), cache
         positions = None
         if cfg.hybrid_attn_every:
             # a copy: the shared block's first application bumps len
             pos = cache["shared_attn"]["len"][0, 0].clone()
             positions = pos.reshape(1, 1).expand(x.shape[0], 1)
-        layers = cache["layers"]
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_decode(

@@ -52,12 +52,15 @@ def interpret_reference_kernels(monkeypatch):
 
 def interpret_reference_lm_kernels(monkeypatch):
     """The same for the LM stack's Pallas kernels: ``repro.kernels.ops``
-    imports ``flash_attention_pallas`` and ``ssd_pallas`` at call time (its
-    dispatch takes no ``interpret`` argument), so binding ``interpret=True``
-    on their modules reaches every ``use_pallas=True`` call site."""
-    from repro.kernels import flash_attention, ssm_scan
+    imports ``flash_attention_pallas``, ``ssd_pallas`` and ``rwkv6_pallas``
+    at call time (its dispatch takes no ``interpret`` argument), so binding
+    ``interpret=True`` on their modules reaches every ``use_pallas=True``
+    call site."""
+    from repro.kernels import flash_attention, rwkv6, ssm_scan
     monkeypatch.setattr(flash_attention, "flash_attention_pallas",
                         functools.partial(flash_attention.flash_attention_pallas,
                                           interpret=True))
     monkeypatch.setattr(ssm_scan, "ssd_pallas",
                         functools.partial(ssm_scan.ssd_pallas, interpret=True))
+    monkeypatch.setattr(rwkv6, "rwkv6_pallas",
+                        functools.partial(rwkv6.rwkv6_pallas, interpret=True))

@@ -21,6 +21,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.configs import get_config
 from repro_torch.kernels.cluster_assign import cluster_assign_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rwkv6 import rwkv6_cuda
 from repro_torch.kernels.spline_fit import nat_spline_fit_cuda
 from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
@@ -170,6 +171,18 @@ def test_ops_route_by_tensor_device_and_cuda_wrappers_refuse_cpu_tensors():
                        ref.ssd_chunked_ref(x, dt, A, Bm, Bm, chunk=4))
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, dt, A, Bm, Bm, chunk=4)
+    r = torch.from_numpy(rng.normal(size=(1, 6, 2, 4)).astype(np.float32))
+    w = -torch.full((1, 6, 2, 4), 0.5)
+    u = torch.ones((2, 4))
+    s0 = torch.from_numpy(rng.normal(size=(1, 2, 4, 4)).astype(np.float32))
+    for got, want in zip(
+            ops.rwkv6_scan(r, r, r, w, u, chunk=4, initial_state=s0,
+                           return_state=True),
+            ref.rwkv6_chunked_ref(r, r, r, w, u, chunk=4, initial_state=s0,
+                                  return_state=True)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_cuda(r, r, r, w, u, chunk=4)
 
 
 def test_serving_entry_points_default_to_the_card(no_cuda, capsys):
@@ -190,6 +203,13 @@ def test_serving_entry_points_default_to_the_card(no_cuda, capsys):
                       "1", "--prompt-len", "4", "--tokens", "2"])
     assert res.tokens.shape == (1, 2)
     assert "device: cpu" in capsys.readouterr().out
+    rw = get_config("rwkv6-1.6b", "smoke")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(rw)
+    with pytest.raises(RuntimeError):
+        serve.main(["--arch", "rwkv6-1.6b", "--variant", "smoke"])
+    model = build_model(rw, "cpu")
+    assert model.cfg.use_kernel is False and model.device.type == "cpu"
 
 
 def _smoke(cwd):

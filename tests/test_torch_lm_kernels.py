@@ -399,7 +399,8 @@ def test_gqa_block_matches_reference(jax_pkg, window):
 # ------------------------------ bindings ------------------------------ #
 @pytest.mark.parametrize("module,symbol", [
     ("flash_attention", "flash_attention_launch"),
-    ("ssm_scan", "ssd_scan_launch")])
+    ("ssm_scan", "ssd_scan_launch"),
+    ("rwkv6", "rwkv6_launch")])
 def test_ctypes_binding_matches_the_c_signature(module, symbol):
     """Each wrapper's ``argtypes`` follow its kernel's ``extern "C"``
     signature, parameter for parameter (the sources compile only on the

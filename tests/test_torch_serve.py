@@ -248,22 +248,32 @@ def test_load_reference_params_checks_names_and_shapes():
 
 
 def test_registry_has_zamba2_only_and_names_roadmap():
-    assert all_archs() == ["zamba2-7b"]
+    """The registry holds the ported architectures, zamba2-7b and
+    rwkv6-1.6b, each config equal to the reference's field by field; any
+    other id raises naming ROADMAP, and ``Model`` refuses a family still
+    unported."""
+    assert all_archs() == ["zamba2-7b", "rwkv6-1.6b"]
     assert get_config("zamba2-7b", "full").n_layers == 81
     assert get_config("zamba2_7b", "smoke").dtype == torch.bfloat16
-    for arch in ("rwkv6-1.6b", "llama3-405b", "no-such-model"):
+    assert get_config("rwkv6-1.6b", "full").n_layers == 24
+    assert get_config("rwkv6_1_6b", "smoke").rwkv_chunk == 8
+    for arch in ("minitron-4b", "llama3-405b", "no-such-model"):
         with pytest.raises(ValueError, match="ROADMAP"):
             get_config(arch)
     from repro.configs import get_config as jget
-    ported = get_config("zamba2-7b", "full")
-    ref_cfg = jget("zamba2-7b", "full")
-    for f in dataclasses.fields(ported):
-        if f.name not in ("dtype", "use_kernel"):
-            assert getattr(ported, f.name) == getattr(ref_cfg, f.name), f.name
-    assert ported.n_params_dense_est == ref_cfg.n_params_dense_est
-    rw = dataclasses.replace(ported, rwkv=True)
+    for arch in all_archs():
+        for variant in ("full", "smoke"):
+            ported = get_config(arch, variant)
+            ref_cfg = jget(arch, variant)
+            for f in dataclasses.fields(ported):
+                if f.name not in ("dtype", "use_kernel"):
+                    assert getattr(ported, f.name) == getattr(ref_cfg, f.name), \
+                        (arch, variant, f.name)
+            assert ported.n_params_dense_est == ref_cfg.n_params_dense_est
+    dense = dataclasses.replace(get_config("zamba2-7b", "smoke"),
+                                family="dense", hybrid_attn_every=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(rw, "cpu")
+        Model(dense, "cpu")
 
 
 def test_serve_runs_end_to_end_on_the_cpu(capsys):
