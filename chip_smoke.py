@@ -133,13 +133,14 @@ def cuda_ms(fn, iters: int = 30, reps: int = 20) -> tuple[float, float]:
     return device, call
 
 
-def device_profile(fn, top: int = 0):
-    """(wall s, summed kernel s or None, the ``top`` kernels by device time
-    as (name, ms, calls)) of one call of ``fn`` under ``torch.profiler``;
-    None when the profiler saw no device time.  Only device-side events
-    count (kernels, copies, sets): an operator's own row repeats the time of
-    the kernels it launched, and the profiler's "Command Buffer Full"
-    marker is the host waiting, not the device working."""
+def device_profile(fn, top: int | None = 0):
+    """(wall s, summed kernel s or None, the ``top`` kernels (None: all) by
+    device time as (name, ms, calls)) of one call of ``fn`` under
+    ``torch.profiler``; None when the profiler saw no device time.  Only
+    device-side events count (kernels, copies, sets): an operator's own row
+    repeats the time of the kernels it launched, and the profiler's
+    "Command Buffer Full" marker is the host waiting, not the device
+    working."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -403,10 +404,64 @@ def _valid_pairs(Sq: int, Sk: int, causal: bool, window: int,
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+# The bf16 kernel against the plain route in float32 on the same bf16-valued
+# inputs, element by element: |out - want| <= ATTN_BF16_C (2^-8 |want| +
+# 2^-9 max |want| over the element's row).  Rounding p to bf16 before P V
+# moves an element by about 2^-8 of the row's output scale, and rounding
+# the output by 2^-8 of itself.  The kernel's order reads 1.35 units at
+# 2048 keys, and with its accumulator or scores kept in bf16 6.05 or 4.86
+# (tests/test_torch_lm_kernels.py, _tensor_core_order and its faults); the
+# serve case below repeats that control on the card.
+ATTN_BF16_C = 3.0
+
+
+def attention_gap(out, want):
+    """max |out - want| / (2^-8 |want| + 2^-9 max |want| of its row)."""
+    want = want.float()
+    unit = (2 ** -8 * want.abs()
+            + 2 ** -9 * want.abs().amax(-1, keepdim=True))
+    return ((out.float() - want).abs() / unit).max().item()
+
+
+def _attention_order(q, k, v, keep: str):
+    """The bf16 kernel's order of operations, causal, over 64-key tiles, in
+    plain torch (Hq = Hkv, Sk a multiple of 64: the serve shape), with one
+    of its float32 values kept in bf16 instead (``keep``: "o" the
+    accumulator, "s" the scores): a kernel the bound must reject."""
+    import math
+
+    import torch
+    qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
+    S = qh.shape[2]
+    scale_log2 = qh.shape[3] ** -0.5 * math.log2(math.e)
+    m = torch.full(qh.shape[:3], -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    for k0 in range(0, kh.shape[2], 64):
+        s = qh @ kh[:, :, k0:k0 + 64].transpose(-1, -2)
+        if keep == "s":
+            s = s.bfloat16().float()
+        kpos = torch.arange(k0, k0 + 64, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s * scale_log2, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + p.bfloat16().float() @ vh[:, :, k0:k0 + 64]
+        if keep == "o":
+            acc = acc.bfloat16().float()
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).bfloat16()
+
+
 def _attention_case(device, dtype, shape, causal: bool, window: int,
-                    q_offset: int, label: str, library: bool) -> dict:
+                    q_offset: int, label: str, library: bool,
+                    controls: bool = False) -> dict:
     """Hold ``flash_attention`` to its plain version on random q, k, v of
-    ``shape`` = (B, Sq, Sk, Hq, Hkv, D), and time both (and SDPA)."""
+    ``shape`` = (B, Sq, Sk, Hq, Hkv, D), and time both (and SDPA); with
+    ``controls`` (bf16, the serve shape) show that the bf16 bound rejects
+    the kernel's order with its accumulator or scores kept in bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -423,15 +478,32 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
     torch.cuda.synchronize()
     out_p = ops.plain_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    # The kernel keeps float32 probabilities; the plain version rounds them
-    # to v's dtype before the product with v (the reference oracle's
-    # probs.astype(v.dtype)).  In bf16 that rounding (2^-9 relative per
-    # probability) and the output's own rounding to bf16 bound the gap at
-    # 2^-6 of max |v|; in float32 only the order of sums differs: 1e-4.
+    # float32: the kernel keeps float32 p, and only the order of sums
+    # differs from the plain version: 1e-4 of max |v|.  bf16: the kernel
+    # rounds p to bf16 as the A operand of P V, as the plain version does
+    # (the reference oracle's probs.astype(v.dtype)); what is left is the
+    # order of sums, the exp2f with the scale folded in and the output's
+    # rounding to bf16, within 2^-6 of max |v|, and element by element
+    # within ATTN_BF16_C of attention_gap's unit against the plain route in
+    # float32 on the same inputs.
     err = (out_k.float() - out_p.float()).abs().max().item()
     tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-4) * v.abs().max().item()
     check(err <= tol, f"flash_attention {label} {dtype} disagrees with its "
           f"plain version: max abs err {err:.3e} > {tol:.3e}")
+    gap_text = ""
+    if dtype == torch.bfloat16:
+        want = ops.plain_attention(q.float(), k.float(), v.float(), **kw)
+        gap = attention_gap(out_k, want)
+        check(gap <= ATTN_BF16_C, f"flash_attention {label} bf16 is "
+              f"{gap:.3f} units from the float32 plain route (> {ATTN_BF16_C})")
+        gap_text = f"; gap to float32 plain {gap:.3f} units (gate {ATTN_BF16_C})"
+        if controls:   # the bound's power: the same order with a bf16 O or S
+            for keep in ("o", "s"):
+                c = attention_gap(_attention_order(q, k, v, keep), want)
+                check(c > ATTN_BF16_C, f"the bf16 attention bound passes a "
+                      f"kernel that keeps {keep} in bf16 ({c:.3f} units)")
+                gap_text += f", with {keep.upper()} kept in bf16 {c:.3f}"
+        del want
     del out_k, out_p
 
     ms, call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **kw),
@@ -441,17 +513,23 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
     library_ms = None
     if library:   # the same function as one PyTorch call, timed only here
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = {"enable_gqa": True} if Hq != Hkv else {}
         library_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=10, reps=5)
+            qt, kt, vt, is_causal=True, **gqa), iters=10, reps=5)
     n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     n_flops = 4 * D * _valid_pairs(Sq, Sk, causal, window, q_offset) * B * Hq
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
     bound_ms, bound_by = bound(n_bytes, n_flops, peak)
     lib = "none" if library_ms is None else f"{library_ms:.4f}"
-    print(f"[kernels] flash_attention {label} {str(dtype)[6:]} B={B} Sq={Sq} "
+    # the dtype picks the kernel (csrc/flash_attention.cu's dispatch)
+    route = "tensor-core bf16" if dtype == torch.bfloat16 else "CUDA-core f32"
+    print(f"[kernels] flash_attention {label} {str(dtype)[6:]} ({route} "
+          f"kernel) B={B} Sq={Sq} "
           f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window} "
-          f"q_offset={q_offset}: max_abs_err={err:.3e} (tol {tol:.3e}); "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"q_offset={q_offset}: max_abs_err={err:.3e} (tol {tol:.3e})"
+          f"{gap_text}; "
+          f"kernel_ms={ms:.4f} ({n_flops / ms * 1e-9:.1f} TFLOP/s) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
           f"({bound_by}, {n_flops:.3e} flop, {n_bytes:.3e} B) sdpa_ms={lib}; "
           f"per eager call kernel {call_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -462,16 +540,22 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
 def phase_kernel_flash_attention(device) -> dict:
     """At the serve path's shape (zamba2-7b prefill: causal, D = 112) and at
     a GQA + window + q_offset case with ragged Sq and Sk, in bf16 and f32;
-    the row reported is the serve shape in bf16, the path's dtype."""
+    in bf16 also at the dense families' shape (minitron-4b's 24 heads over
+    8 kv heads of 128, causal), reported and not gated on time.  The row
+    reported is the serve shape in bf16, the path's dtype."""
     import torch
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
     row = None
     for dtype in (torch.bfloat16, torch.float32):
         r = _attention_case(device, dtype, serve_shape, True, 0, 0,
-                            "serve shape", library=True)
+                            "serve shape", library=True,
+                            controls=dtype == torch.bfloat16)
         row = row or r
         _attention_case(device, dtype, (2, 1000, 1500, 24, 8, 128), True,
                         256, 500, "GQA+window+offset, ragged", library=False)
+    _attention_case(device, torch.bfloat16,
+                    (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128),
+                    True, 0, 0, "dense GQA shape", library=True)
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -885,6 +969,10 @@ def _checked_kernels(errors: list):
             * v.abs().max().item()
         errors.append(("flash_attention",
                        (out.float() - want.float()).abs().max().item(), tol))
+        if q.dtype == torch.bfloat16:   # and element by element (_attention_case)
+            want = ops.plain_attention(q.float(), k.float(), v.float(), **kw)
+            errors.append(("flash_attention vs float32",
+                           attention_gap(out, want), ATTN_BF16_C))
         return out
 
     def ssd_scan(x, dt, A, B, C, **kw):
@@ -995,9 +1083,12 @@ def _check_on_activations(model, prompts, label: str) -> None:
           f"same activations "
           f"(launches: prefill {in_prefill}, decode {in_decode}): worst "
           f"err/tol " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
-    # a result per launch, and the final state's too where one is returned
-    # (every ssd_scan and rwkv6 launch of the serve path returns it)
-    n_results = sum((1 if name == "flash_attention" else 2) * (c2[name] - c0[name])
+    # two results a launch: every ssd_scan and rwkv6 launch of the serve path
+    # returns its final state, and a bf16 flash_attention is also held to
+    # the float32 plain route
+    per_launch = {"flash_attention": 2 if cfg.dtype == torch.bfloat16 else 1,
+                  "ssd_scan": 2, "rwkv6": 2}
+    n_results = sum(per_launch[name] * (c2[name] - c0[name])
                     for name in LM_KERNELS)
     check(len(errors) == n_results and not bad,
           f"{label} kernel results on the serve path's activations disagree "
@@ -1086,9 +1177,10 @@ def phase_serve(device, arch: str) -> dict[str, int]:
           f"device ops: {top_text(ops_)}")
     wall, dev, ops_ = device_profile(lambda: model.prefill(
         prompts, model.init_cache(SERVE_BATCH, n_tokens + SERVE_PROMPT + 4)),
-        top=8)
+        top=None)
+    ours = [op for op in ops_ if any(name in op[0] for name in LM_KERNELS)]
     print(f"{tag} profiled prefill: {busy_text(wall, dev)}; top device "
-          f"ops: {top_text(ops_)}")
+          f"ops: {top_text(ops_[:8])}; the port's kernels: {top_text(ours)}")
 
     # 1. every launch of one prefill and one decode step against its plain
     #    version on the same activations (the serve path's real inputs, not

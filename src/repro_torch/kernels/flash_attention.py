@@ -2,7 +2,10 @@
 ``csrc/flash_attention.cu``.
 
 The shared attention block of a hybrid model runs it in every prefill
-(``models.attention.gqa_prefill``; zamba2-7b: 13 times a prefill).  One CUDA
+(``models.attention.gqa_prefill``; zamba2-7b: 13 times a prefill).  The
+dtype picks the kernel: bfloat16 runs on the tensor cores (``mma.sync``
+with ``ldmatrix`` and ``cp.async``, FlashAttention-2's shape), float32 on
+the CUDA cores, where it keeps full float32 products.  In both one CUDA
 block owns a (batch, q head, 64-query tile) and loops over 64-key tiles,
 skipping those outside the causal or window band (see the note at the top
 of the source).  Its plain-torch version is ``kernels.ops.plain_attention``
@@ -47,7 +50,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16), contiguous on one CUDA device -> (B, Sq, Hq, D) in q's
     dtype.  Raises on anything the kernel does not take: D not a multiple
     of 8 or above 256, Hq not a multiple of Hkv, an empty sequence, inputs
-    that require grad (there is no backward)."""
+    that require grad (there is no backward), bfloat16 inputs that do not
+    start 16-byte aligned."""
     global launches
     ts = (q, k, v)
     if not all(t.is_cuda for t in ts) or not (q.device == k.device == v.device):
@@ -81,6 +85,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Sq={Sq}, Sk={Sk}, window={window}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention_cuda needs contiguous q, k and v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention_cuda copies bfloat16 rows 16 bytes "
+                         "at a time: q, k and v must start 16-byte aligned")
     out = torch.empty_like(q)
     fn = _lib()
     with torch.cuda.device(q.device):

@@ -15,15 +15,29 @@ sums taken in another order (the SSD's four-operand einsums are contracted
 pairwise), so 2e-5 (attention, norms, rope) and 1e-4 (SSD, whose terms
 pass through exp and sums over 16-256 steps); against the Pallas kernels
 ``tests/test_kernels.py``'s own tolerances (attention 2e-5 / bf16 2e-2,
-SSD 1e-4 / bf16 5e-2).  On the card the kernels keep float32 probabilities
-and the plain attention rounds them to v's dtype (the reference oracle's
-``probs.astype(v.dtype)``), so in bf16 the two differ by that rounding
-(2^-9 relative per probability) plus the output's own rounding to bf16;
-the bound below is 2^-6 of max |v|.  In float32 they differ only in the
-order of sums: 1e-4 of max |v|.  The SSD kernel accumulates in float32 in
-another order than the plain version's batched products: 1e-4 of the
-output's scale in float32, and in bf16 the output's rounding (2^-8 of the
-scale, with margin 2^-6).
+SSD 1e-4 / bf16 5e-2).  On the card, float32: the kernel keeps float32
+probabilities and differs from the plain version only in the order of
+sums, 1e-4 of max |v|.  bf16: the kernel runs its products on the tensor
+cores and rounds p to bf16 as the operand of P V, as the plain version
+does (the reference oracle's ``probs.astype(v.dtype)``); what is left is
+the order of sums, exp2 with the scale folded in, and the output's rounding
+to bf16, bounded at 2^-6 of max |v|.  ``_tensor_core_order`` repeats the
+kernel's arithmetic on the CPU (64-key tiles over the kernel's tile range,
+scores in float32 from bf16 operands, float32 running max, rescale and l,
+p rounded to bf16 only as the operand of P V, a float32 accumulator) and
+is held to the JAX reference in float32 and to the port's plain version
+within the same 2^-6 of max |v|.  Element by element, against attention
+in float32 on the same bf16-valued inputs, both the emulation and the card
+kernel stay within BF16_GAP_C = 3 units of 2^-8 |want| + 2^-9 max |want|
+over the element's row: p's rounding moves an element by about 2^-8 of its
+row's output scale, the output's rounding by 2^-8 of itself.  At 2048
+keys the sound order reads 1.35 units; the same order with its
+accumulator or its scores kept in bf16 reads 6.05 or 4.86, and one with a
+late rescale dropped hundreds, so the bound tells them apart
+(``test_bf16_gap_tells_the_kernel_order_from_faulty_ones``).  The SSD
+kernel accumulates in float32 in another order than the plain version's
+batched products: 1e-4 of the output's scale in float32, and in bf16 the
+output's rounding (2^-8 of the scale, with margin 2^-6).
 """
 import functools
 
@@ -188,6 +202,152 @@ def test_decode_attention_matches_reference(jax_pkg, L_valid):
     want = jax_pkg.ops.decode_attention(jq, jk, jv, jnp.asarray(valid))
     got = ops.decode_attention(tq, tk, tv, torch.from_numpy(valid))
     _close(got, want, 2e-5)
+
+
+def _tensor_core_order(q, k, v, *, causal, window, q_offset, bk=64,
+                       fault=None):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: per 64-query
+    tile, the kernel's range of 64-key tiles; S in float32 from the bf16
+    operands, in log2 units (scale * log2(e) folded in, the masked value
+    -1e30 as it is, a key past Sk at -inf); float32 running max, rescale and
+    l from the float32 p; p rounded to bf16 only as the operand of P V;
+    float32 O, divided by max(l, 1e-30) and rounded to bf16.  ``fault``
+    makes it a kernel the bounds must reject: "o" keeps the accumulator in
+    bf16, "s" the scores, "rescale" skips the accumulator's rescale on each
+    query tile's last key tile."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    bq, neg = 64, -1e30
+    scale_log2 = np.float32(1.0 / np.sqrt(D) * np.log2(np.e))
+    n_tiles = -(-Sk // bk)
+    pad = n_tiles * bk - Sk
+
+    def heads(x):   # (B, S, H, D) -> (B, Hq, S + pad, D) float32, zero rows
+        x = x.float().repeat_interleave(Hq // x.shape[2], dim=2)
+        return torch.nn.functional.pad(x.transpose(1, 2), (0, 0, 0, pad))
+    qh = q.float().transpose(1, 2)
+    kh, vh = heads(k), heads(v)
+    out = torch.empty((B, Hq, Sq, D))
+    kpos_all = torch.arange(n_tiles * bk)
+    for q0 in range(0, Sq, bq):
+        rows = min(bq, Sq - q0)
+        qpos = torch.arange(rows) + q_offset + q0
+        lo, hi = int(qpos[0]), int(qpos[-1])
+        t_begin, t_end = 0, n_tiles
+        if not ((causal and lo < 0) or (window > 0 and hi - window + 1 > Sk - 1)):
+            if causal:
+                t_end = min(t_end, hi // bk + 1)
+            if window > 0 and lo - window + 1 > 0:
+                t_begin = (lo - window + 1) // bk
+        m = torch.full((B, Hq, rows), neg)
+        l = torch.zeros((B, Hq, rows))
+        acc = torch.zeros((B, Hq, rows, D))
+        for t in range(t_begin, t_end):
+            ks = slice(t * bk, (t + 1) * bk)
+            s = qh[:, :, q0:q0 + rows] @ kh[:, :, ks].transpose(-1, -2)
+            if fault == "s":
+                s = s.bfloat16().float()
+            s = s * scale_log2
+            kpos = kpos_all[ks]
+            seen = torch.ones((rows, bk), dtype=torch.bool)
+            if causal:
+                seen &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                seen &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(seen, s, torch.tensor(neg))
+            s = torch.where(kpos < Sk, s, torch.tensor(-float("inf")))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp2(s - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = alpha * l + p.sum(-1)
+            if fault == "rescale" and t == t_end - 1:
+                alpha = torch.ones_like(alpha)
+            acc = alpha[..., None] * acc + p.bfloat16().float() @ vh[:, :, ks]
+            if fault == "o":
+                acc = acc.bfloat16().float()
+            m = m_new
+        out[:, :, q0:q0 + rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+TC_CPU_CASES = ATTN_REF_CASES + [   # the card cases, cut to the CPU's size
+    # (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
+    (1, 70, 90, 4, 2, 24, True, 0, 20),      # D not a multiple of 16
+    (2, 65, 130, 6, 3, 40, True, 32, 65),    # D = 40, window across tiles
+    (1, 5, 5, 2, 1, 64, True, 0, 0),         # Sk < one tile
+    (1, 33, 5, 2, 2, 64, False, 0, 0),
+    (2, 1, 200, 8, 2, 128, True, 0, 199),    # Sq = 1, the dense families' D
+    (1, 100, 100, 6, 2, 112, True, 0, 0),    # three q heads per kv head
+    (1, 70, 80, 2, 1, 32, True, 0, -20),     # rows before every key
+    (1, 130, 300, 4, 4, 256, True, 0, 170),  # D = 256
+    (1, 150, 150, 2, 1, 64, True, 40, 0),
+    (1, 256, 256, 2, 2, 112, True, 0, 0),    # zamba2's prefill, cut
+]
+
+
+def _tc_inputs(case):
+    """q, k, v in bf16 from a numpy seed."""
+    B, Sq, Sk, Hq, Hkv, D = case[:6]
+    rng = np.random.default_rng(sum(case[:6]) + 16)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+            for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+
+BF16_GAP_C = 3.0   # units of _bf16_gap; the module docstring says why
+
+
+def _bf16_gap(got, want):
+    """max |got - want| / (2^-8 |want| + 2^-9 max |want| of its row)."""
+    want = want.float()
+    unit = 2 ** -8 * want.abs() + 2 ** -9 * want.abs().amax(-1, keepdim=True)
+    return ((got.float() - want).abs() / unit).max().item()
+
+
+@pytest.mark.parametrize("case", TC_CPU_CASES)
+def test_tensor_core_order_matches_reference(jax_pkg, case):
+    """The bf16 kernel's rounding points stay within 2^-6 of max |v| of the
+    JAX reference in float32 on the same (bf16-valued) inputs, and within
+    BF16_GAP_C units of it element by element."""
+    causal, window, qo = case[6:]
+    tq, tk, tv = _tc_inputs(case)
+    jq, jk, jv = (jax_pkg.jnp.asarray(_np(t)) for t in (tq, tk, tv))
+    want = jax_pkg.ref.attention_ref(jq, jk, jv, causal=causal,
+                                     window=window, q_offset=qo)
+    got = _tensor_core_order(tq, tk, tv, causal=causal, window=window,
+                             q_offset=qo)
+    assert got.shape == tq.shape and got.dtype == torch.bfloat16
+    tol = 2 ** -6 * tv.float().abs().max().item()
+    assert np.abs(_np(got) - np.asarray(want)).max() <= tol
+    assert _bf16_gap(got, torch.from_numpy(np.asarray(want))) <= BF16_GAP_C
+
+
+@pytest.mark.parametrize("case", TC_CPU_CASES)
+def test_tensor_core_order_matches_plain_attention(case):
+    """... and of the port's plain version on the same bf16 inputs, the
+    bound the card holds the kernel to."""
+    causal, window, qo = case[6:]
+    tq, tk, tv = _tc_inputs(case)
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    got = _tensor_core_order(tq, tk, tv, **kw)
+    want = ops.plain_attention(tq, tk, tv, **kw)
+    tol = 2 ** -6 * tv.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= tol
+
+
+@pytest.mark.parametrize("fault", [None, "o", "s", "rescale"])
+def test_bf16_gap_tells_the_kernel_order_from_faulty_ones(fault):
+    """At zamba2's head width and 2048 keys (the rows where a bf16
+    accumulator's rounding piles up), the kernel's order stays within
+    BF16_GAP_C of attention in float32, and the same order with its
+    accumulator or scores kept in bf16, or a rescale dropped, does not."""
+    case = (1, 2048, 2048, 4, 2, 112)
+    tq, tk, tv = _tc_inputs(case)
+    kw = dict(causal=True, window=0, q_offset=0)
+    got = _tensor_core_order(tq, tk, tv, fault=fault, **kw)
+    gap = _bf16_gap(got, ops.plain_attention(tq.float(), tk.float(),
+                                             tv.float(), **kw))
+    assert (gap <= BF16_GAP_C) == (fault is None), gap
 
 
 # ------------------------------ SSD ---------------------------------- #
@@ -436,6 +596,15 @@ CARD_ATTN_CASES = [
     (1, 64, 64, 2, 2, 256, True, 0, 0),
     (1, 10, 10, 2, 2, 16, True, 4, 100),          # rows that see no key
     (2, 300, 300, 4, 4, 112, True, 0, 0),
+    (1, 70, 90, 4, 2, 24, True, 0, 20),           # D not a multiple of 16
+    (2, 65, 130, 6, 3, 40, True, 32, 65),
+    (1, 5, 5, 2, 1, 64, True, 0, 0),              # Sk < one tile
+    (1, 33, 5, 2, 2, 64, False, 0, 0),
+    (2, 1, 200, 8, 2, 128, True, 0, 199),         # Sq = 1
+    (1, 100, 100, 6, 2, 112, True, 0, 0),         # Hq / Hkv = 3
+    (1, 70, 80, 2, 1, 32, True, 0, -20),          # rows before every key
+    (1, 130, 300, 4, 4, 256, True, 0, 170),       # D = 256: registers
+    (2, 2048, 2048, 8, 8, 112, True, 0, 0),       # zamba2's prefill rows
 ]
 
 
@@ -457,6 +626,30 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, case, dtype):
                                q_offset=qo)
     tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-4) * v.abs().max()
     assert (got.float() - want.float()).abs().max() <= tol
+    if dtype == torch.bfloat16:
+        want = ops.plain_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window, q_offset=qo)
+        assert _bf16_gap(got, want) <= BF16_GAP_C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_ATTN_CASES)
+def test_flash_attention_bf16_kernel_matches_f32_kernel_on_card(cuda, case):
+    """The tensor-core bf16 kernel against the CUDA-core float32 kernel on
+    the same (bf16-valued) inputs: the two kernels' arithmetic, directly,
+    within 2^-6 of max |v| and BF16_GAP_C units element by element."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    B, Sq, Sk, Hq, Hkv, D, causal, window, qo = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case[:6]) + 1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_cuda(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    tol = 2 ** -6 * v.float().abs().max()
+    assert (got.float() - want).abs().max() <= tol
+    assert _bf16_gap(got, want) <= BF16_GAP_C
 
 
 @pytest.mark.cuda
@@ -502,6 +695,9 @@ def test_lm_kernels_refuse_what_they_do_not_take_on_card(cuda):
         flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
     with pytest.raises(ValueError, match="grad"):
         flash_attention_cuda(q.requires_grad_(), q, q)
+    q = torch.zeros((1 + 1 * 8 * 2 * 16,), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(*(q[1:].view(1, 8, 2, 16),) * 3)
     x = torch.zeros((1, 8, 2, 65), device=cuda)
     dt = torch.zeros((1, 8, 2), device=cuda)
     A = torch.zeros((2,), device=cuda)
