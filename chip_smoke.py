@@ -562,42 +562,232 @@ def phase_kernel_flash_attention(device) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:96", **row}
 
 
-def _ssd_case(device, dtype, shape, chunk: int, init: bool, label: str
-              ) -> dict:
-    """Hold ``ssd_scan`` to its plain version on random inputs of
-    ``shape`` = (B, L, H, P, N) (final state included), and time both."""
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+# The bf16 SSD kernel against the plain route in float32 on the same
+# bf16-valued inputs, element by element: |y - want| <= SSD_BF16_C (2^-8
+# |want| + 2^-9 max |want| over the head's P outputs at that position +
+# 2^-20 mag), mag the plain SSD of |x|, |B|, |C| (ssd_magnitude).  The
+# first two terms cover y's own rounding to bf16 (<= 1 unit).  The mag
+# term covers errors in proportion to the terms of a sum, not to its
+# result, which show where the terms cancel and leave a row of y far below
+# them, as on the serve path's activations: the kernel takes G, S and w x
+# as two bf16 halves (~2^-17 of each term lost), and float32 rounds C.B^T
+# and the sums (~2^-24 of them), in the plain route too
+# (_check_on_activations holds the kernel, its order in plain torch and
+# the float32 route to y in float64 where they are farthest apart).  The
+# kernel's order read 0.44-0.66 units over the CPU cases, and with
+# O kept in bf16 8.12 where many keys reach each output
+# (tests/test_torch_lm_kernels.py, _ssd_tensor_core_order and its faults);
+# the slow-decay case below repeats that control on the card.  Like the
+# other SSD bounds, the gate adds the decays' float32 sensitivity
+# (ssd_rel_tol), here in units of 2^-8 |want|.
+SSD_BF16_C = 2.0
+# dt's range in the random cases, and in the slow-decay case, where dt * A
+# stays below 2e-3 and a whole chunk of keys reaches each output
+SSD_DT = (0.01, 0.2)
+SSD_SLOW_DT = (1e-4, 1e-3)
 
+
+def ssd_magnitude(x, dt, A, B, C, **kw):
+    """The plain SSD of |x|, |B|, |C| (and |initial_state|): at each output,
+    the sum of the magnitudes of its terms."""
+    from repro_torch.kernels import ref
+    s0 = kw.get("initial_state")
+    return ref.ssd_chunked_ref(x.float().abs(), dt, A, B.float().abs(),
+                               C.float().abs(), chunk=kw["chunk"],
+                               initial_state=None if s0 is None else s0.abs())
+
+
+def ssd_gap_units(y, want, mag):
+    """|y - want| / (2^-8 |want| + 2^-9 max |want| of its P outputs +
+    2^-20 mag), element by element (mag None: without the last term)."""
+    want = want.float()
+    unit = 2 ** -8 * want.abs() + 2 ** -9 * want.abs().amax(-1, keepdim=True)
+    if mag is not None:
+        unit = unit + 2 ** -20 * mag
+    return (y.float() - want).abs() / unit
+
+
+def ssd_gap(y, want, mag):
+    """The largest of ``ssd_gap_units``."""
+    return ssd_gap_units(y, want, mag).max().item()
+
+
+def ssd_gap_gate(dt, A, chunk: int) -> float:
+    return SSD_BF16_C + 2 ** 8 * ssd_rel_tol(dt, A, chunk, 0.0)
+
+
+def _ssd_inputs(device, dtype, shape, init: bool, dt_range=SSD_DT):
+    """Random x, dt (uniform in ``dt_range``), A, B, C and an initial state
+    (or None) for ``shape`` = (B, L, H, P, N), seeded by L + H; x, B and C
+    in ``dtype``."""
+    import torch
     B, L, H, P, N = shape
     g = torch.Generator(device=device).manual_seed(L + H)
     x = torch.randn((B, L, H, P), generator=g, device=device).to(dtype)
     Bm = torch.randn((B, L, N), generator=g, device=device).to(dtype)
     Cm = torch.randn((B, L, N), generator=g, device=device).to(dtype)
-    dt = torch.rand((B, L, H), generator=g, device=device) * 0.19 + 0.01
+    lo, hi = dt_range
+    dt = torch.rand((B, L, H), generator=g, device=device) * (hi - lo) + lo
     A = -(torch.rand((H,), generator=g, device=device) * 1.5 + 0.5)
     s0 = (torch.randn((B, H, P, N), generator=g, device=device) if init
           else None)
-    kw = dict(chunk=chunk, initial_state=s0, return_state=True)
+    return x, dt, A, Bm, Cm, s0
 
-    y_k, s_k = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
-    torch.cuda.synchronize()
+
+def _ssd_order(x, dt, A, Bm, Cm, *, chunk, initial_state=None,
+               o_bf16: bool = False):
+    """The bf16 kernel's order of operations in plain torch: 64-row query
+    sub-blocks; C.B^T in float32; G, the entering state and each update
+    term w x as two bf16 halves; y rounded to bf16.  With ``o_bf16`` its
+    float32 accumulator O is kept in bf16 instead, rounded after the inter
+    term and after every 16 keys (an mma's depth): a kernel that
+    ``ssd_gap`` must reject.  Returns y."""
+    import torch
+    Bsz, L, H, P = x.shape
+    dev = x.device
+    xh = x.float().permute(0, 2, 1, 3)                  # (B, H, L, P)
+    dth = dt.float().permute(0, 2, 1)                   # (B, H, L)
+    Bf, Cf = Bm.float()[:, None], Cm.float()[:, None]   # (B, 1, L, N)
+    S = (torch.zeros((Bsz, H, P, Bm.shape[-1]), device=dev)
+         if initial_state is None else initial_state.float().clone())
+    y = torch.empty((Bsz, H, L, P), device=dev)
+    bk = 16 if o_bf16 else 64
+
+    def halves(v):
+        hi = v.bfloat16().float()
+        return hi, (v - hi).bfloat16().float()
+
+    def o_round(v):
+        return v.bfloat16().float() if o_bf16 else v
+    for t0 in range(0, L, chunk):
+        Lc = min(chunk, L - t0)
+        d = dth[..., t0:t0 + Lc]
+        cum = torch.cumsum(d * A.float()[None, :, None], -1)
+        s_hi, s_lo = halves(S)
+        for q0 in range(0, Lc, 64):
+            q1 = min(q0 + 64, Lc)
+            Cq = Cf[:, :, t0 + q0:t0 + q1]
+            acc = o_round((Cq @ s_hi.transpose(-1, -2)
+                           + Cq @ s_lo.transpose(-1, -2))
+                          * torch.exp(cum[..., q0:q1])[..., None])
+            qpos = torch.arange(q0, q1, device=dev)[:, None]
+            for k0 in range(0, q1, bk):
+                k1 = min(k0 + bk, Lc)
+                s = Cq @ Bf[:, :, t0 + k0:t0 + k1].transpose(-1, -2)
+                seen = torch.arange(k0, k1, device=dev)[None, :] <= qpos
+                dec = cum[..., q0:q1, None] - cum[..., None, k0:k1]
+                G = torch.where(seen, s * torch.exp(torch.where(seen, dec, 0.0))
+                                * d[..., None, k0:k1], 0.0)
+                g_hi, g_lo = halves(G)
+                xk = xh[..., t0 + k0:t0 + k1, :]
+                acc = o_round(acc + (g_hi @ xk + g_lo @ xk))
+            y[..., t0 + q0:t0 + q1, :] = acc
+        w = torch.exp(cum[..., -1:] - cum) * d
+        hi, lo = halves(w[..., None] * xh[..., t0:t0 + Lc, :])
+        Bk = Bf[:, :, t0:t0 + Lc]
+        S = (S * torch.exp(cum[..., -1])[..., None, None]
+             + (hi.transpose(-1, -2) @ Bk + lo.transpose(-1, -2) @ Bk))
+    return y.permute(0, 2, 1, 3).bfloat16()
+
+
+def _ssd_float64(x, dt, A, Bm, Cm, chunk: int):
+    """y of one batch row and one head in float64, from zero state: x
+    (L, P), dt (L,), A a number, B and C (L, N); each chunk's weights in
+    full, exp only where k <= q."""
+    import torch
+    x, dt, Bm, Cm = (t.double() for t in (x, dt, Bm, Cm))
+    L, P = x.shape
+    S = torch.zeros((P, Bm.shape[-1]), dtype=torch.float64, device=x.device)
+    y = torch.empty_like(x)
+    for t0 in range(0, L, chunk):
+        sl = slice(t0, min(t0 + chunk, L))
+        d = dt[sl]
+        cum = torch.cumsum(d * float(A), 0)
+        seen = torch.ones((len(d), len(d)), dtype=torch.bool,
+                          device=x.device).tril()
+        dec = torch.where(seen, cum[:, None] - cum[None, :], float("-inf"))
+        G = (Cm[sl] @ Bm[sl].T) * dec.exp() * d[None, :]
+        y[sl] = G @ x[sl] + cum.exp()[:, None] * (Cm[sl] @ S.T)
+        w = (cum[-1] - cum).exp() * d
+        S = cum[-1].exp() * S + (w[:, None] * x[sl]).T @ Bm[sl]
+    return y
+
+
+def _ssd_held(label: str, y, s, inputs, kw) -> tuple[float, str]:
+    """Hold one ``ssd_scan`` result (y and the final state s) to the plain
+    version on the same inputs and, in bf16, to the plain route in float32
+    element by element (``ssd_gap``); fails the run on a miss.  Returns y's
+    max abs error and a text of the errors and their bounds."""
+    import torch
+    from repro_torch.kernels import ref
+    x, dt, A, Bm, Cm, _ = inputs
+    chunk = kw["chunk"]
     y_p, s_p = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
-    torch.cuda.synchronize()
     # Both accumulate in float32, in another order; the output is rounded to
     # x's dtype (bf16: 2^-9 relative, bounded here at 2^-6 of the scale;
     # float32: 1e-4).  The final state is float32 in both: 1e-4 of its
     # scale.  Each bound adds the decays' float32 sensitivity (ssd_rel_tol).
-    err = (y_k.float() - y_p.float()).abs().max().item()
-    base = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+    err = (y.float() - y_p.float()).abs().max().item()
+    base = 2 ** -6 if x.dtype == torch.bfloat16 else 1e-4
     tol = ssd_rel_tol(dt, A, chunk, base) * y_p.float().abs().max().item()
-    err_s = (s_k - s_p).abs().max().item()
+    err_s = (s - s_p).abs().max().item()
     tol_s = ssd_rel_tol(dt, A, chunk, 1e-4) * s_p.abs().max().item()
+    del y_p, s_p
     check(err <= tol and err_s <= tol_s,
-          f"ssd_scan {label} {dtype} disagrees with its plain version: y err "
+          f"ssd_scan {label} {x.dtype} disagrees with its plain version: y err "
           f"{err:.3e} (tol {tol:.3e}), state err {err_s:.3e} (tol {tol_s:.3e})")
-    del y_k, s_k, y_p, s_p
+    text = (f"max_abs_err(y)={err:.3e} (tol {tol:.3e}) max_abs_err(state)="
+            f"{err_s:.3e} (tol {tol_s:.3e})")
+    if x.dtype == torch.bfloat16:
+        want = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                   **kw)[0]
+        gap = ssd_gap(y, want, ssd_magnitude(x, dt, A, Bm, Cm, **kw))
+        gate = ssd_gap_gate(dt, A, chunk)
+        del want
+        check(gap <= gate, f"ssd_scan {label} bf16 is {gap:.3f} units "
+              f"from the float32 plain route (> {gate:.3f})")
+        text += f"; gap to float32 plain {gap:.3f} units (gate {gate:.3f})"
+    return err, text
+
+
+def _ssd_case(device, dtype, shape, chunk: int, init: bool, label: str,
+              dt_range=SSD_DT, control: bool = False) -> dict:
+    """Hold ``ssd_scan`` to its plain version on random inputs of
+    ``shape`` = (B, L, H, P, N) (final state included; ``_ssd_held``), and
+    time both; in bf16 also time the float32 kernel on the same bf16-valued
+    inputs.  With ``control`` (bf16) show that ``ssd_gap``'s gate rejects
+    the kernel's order with its accumulator kept in bf16."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+
+    B, L, H, P, N = shape
+    inputs = _ssd_inputs(device, dtype, shape, init, dt_range)
+    x, dt, A, Bm, Cm, s0 = inputs
+    kw = dict(chunk=chunk, initial_state=s0, return_state=True)
+
+    y_k, s_k = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+    torch.cuda.synchronize()
+    err, err_text = _ssd_held(label, y_k, s_k, inputs, kw)
+    del y_k, s_k
+    if control:   # the gate's power: the same order with a bf16 O
+        kw2 = dict(chunk=chunk, initial_state=s0)
+        want = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                   **kw2)
+        c = ssd_gap(_ssd_order(x, dt, A, Bm, Cm, o_bf16=True, **kw2), want,
+                    ssd_magnitude(x, dt, A, Bm, Cm, **kw2))
+        gate = ssd_gap_gate(dt, A, chunk)
+        del want
+        check(c > gate, f"ssd_scan {label}: the bf16 SSD gate passes a "
+              f"kernel that keeps O in bf16 ({c:.3f} units, gate {gate:.3f})")
+        err_text += f", with O kept in bf16 {c:.3f}"
+    if dtype == torch.bfloat16:
+        x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+        f32_ms, _ = cuda_ms(lambda: ssd_scan_cuda(x32, dt, A, B32, C32, **kw),
+                            iters=10, reps=5)
+        del x32, B32, C32
+        err_text += (f"; the float32 kernel on the same bf16-valued inputs "
+                     f"{f32_ms:.4f} ms")
 
     ms, call_ms = cuda_ms(lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, **kw),
                           iters=10, reps=5)
@@ -612,10 +802,14 @@ def _ssd_case(device, dtype, shape, chunk: int, init: bool, label: str
                + 4 * A.numel() + 4 * B * H * P * N * (2 if init else 1))
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
     bound_ms, bound_by = bound(n_bytes, n_flops, peak)
-    print(f"[kernels] ssd_scan {label} {str(dtype)[6:]} B={B} L={L} H={H} "
-          f"P={P} N={N} chunk={chunk} initial_state={init}: "
-          f"max_abs_err(y)={err:.3e} (tol {tol:.3e}) max_abs_err(state)="
-          f"{err_s:.3e} (tol {tol_s:.3e}); kernel_ms={ms:.4f} "
+    # the dtype picks the kernel (csrc/ssd_scan.cu's dispatch)
+    route = "tensor-core bf16" if dtype == torch.bfloat16 else "CUDA-core f32"
+    print(f"[kernels] ssd_scan {label} {str(dtype)[6:]} ({route} kernel) "
+          f"B={B} L={L} H={H} "
+          f"P={P} N={N} chunk={chunk} initial_state={init} dt in "
+          f"[{dt_range[0]:g}, {dt_range[1]:g}]: "
+          f"{err_text}; kernel_ms={ms:.4f} "
+          f"({n_flops / ms * 1e-9:.1f} TFLOP/s) "
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
           f"{n_flops:.3e} flop, {n_bytes:.3e} B); per eager call kernel "
           f"{call_ms:.4f} ms; library_ms: none (no one PyTorch call runs the "
@@ -644,15 +838,35 @@ def ssd_rel_tol(dt, A, chunk: int, base: float) -> float:
 def phase_kernel_ssd_scan(device) -> dict:
     """At the serve path's shape (zamba2-7b prefill: H = 112, P = N = 64,
     chunk 256, final state) and at a ragged L = 2000 with a non-zero initial
-    state, in bf16 and f32; the row reported is the serve shape in bf16."""
+    state, in bf16 and f32; in bf16 also at slow decays, with the bf16-O
+    control, and the serve shape over the batch.  The row reported is the
+    serve shape in bf16."""
     import torch
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+    serve_shape = (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64)
     row = None
     for dtype in (torch.bfloat16, torch.float32):
-        r = _ssd_case(device, dtype, (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64),
-                      256, False, "serve shape")
+        r = _ssd_case(device, dtype, serve_shape, 256, False, "serve shape")
         row = row or r
         _ssd_case(device, dtype, (2, 2000, 112, 64, 64), 256, True,
                   "ragged L, initial state")
+    _ssd_case(device, torch.bfloat16, (2, SERVE_PROMPT, 112, 64, 64), 256,
+              True, "slow decays, initial state", SSD_SLOW_DT, control=True)
+    # B = 1 puts one block on each of 112 SMs, so its time is one block's
+    # chain of steps; B = 3 fills the card's 3 x 132 block slots once, and
+    # B = 8 needs 2.26 such waves
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(device, torch.bfloat16, serve_shape,
+                                      False)
+    sweep = []
+    for b in (1, 2, 3, 4):
+        xb, dtb, Bb, Cb = (t[:b].contiguous() for t in (x, dt, Bm, Cm))
+        ms, _ = cuda_ms(lambda: ssd_scan_cuda(xb, dtb, A, Bb, Cb, chunk=256,
+                                              return_state=True),
+                        iters=10, reps=5)
+        sweep.append(f"B={b} {ms:.4f} ms")
+    print(f"[kernels] ssd_scan serve shape bfloat16 over the batch: "
+          f"{', '.join(sweep)} (B={SERVE_BATCH}: above)")
+    del x, dt, Bm, Cm
     torch.cuda.empty_cache()
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -949,12 +1163,14 @@ def phase_fleet(device, card_db) -> dict[str, int]:
     return counts
 
 
-def _checked_kernels(errors: list):
+def _checked_kernels(errors: list, worst_ssd: dict):
     """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
     ``ops.rwkv6_scan`` replaced by versions that launch the kernel, run its
     plain version on the same inputs, and append (name, max abs err,
-    tolerance) to ``errors``.  The models look them up in ``ops`` at each
-    call."""
+    tolerance) to ``errors``.  For the bf16 ``ssd_scan`` launch farthest
+    from the float32 plain route (``ssd_gap``), ``worst_ssd`` keeps that
+    (batch, head): its inputs, the kernel's y and the float32 plain y.
+    The models look them up in ``ops`` at each call."""
     import contextlib
 
     import torch
@@ -989,6 +1205,23 @@ def _checked_kernels(errors: list):
                            (out[1] - want[1]).abs().max().item(),
                            ssd_rel_tol(dt, A, chunk, 1e-4)
                            * want[1].abs().max().item()))
+        if x.dtype == torch.bfloat16:   # and element by element (_ssd_case)
+            want = ref.ssd_chunked_ref(x.float(), dt, A, B.float(),
+                                       C.float(), **kw)
+            want = want[0] if kw.get("return_state") else want
+            units = ssd_gap_units(y, want, ssd_magnitude(x, dt, A, B, C, **kw))
+            gap = units.max().item()
+            errors.append(("ssd_scan vs float32", gap,
+                           ssd_gap_gate(dt, A, chunk)))
+            if gap > worst_ssd.get("gap", -1.0):   # prefill: no initial state
+                b, _, h, _ = (int(i) for i in torch.unravel_index(
+                    units.argmax(), units.shape))
+                worst_ssd.update(
+                    gap=gap, gate=errors[-1][2], b=b, h=h, chunk=chunk,
+                    launch=sum(e[0] == "ssd_scan vs float32" for e in errors),
+                    x=x[b, :, h].clone(), dt=dt[b, :, h].clone(),
+                    A=A[h].item(), B=B[b].clone(), C=C[b].clone(),
+                    y=y[b, :, h].clone(), want=want[b, :, h].clone())
         return out
 
     def rwkv6_scan(r, k, v, w, u, **kw):
@@ -1060,8 +1293,9 @@ def _check_on_activations(model, prompts, label: str) -> None:
     import torch
     cfg = model.cfg
     errors: list = []
+    worst_ssd: dict = {}
     cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 2)
-    with _checked_kernels(errors):
+    with _checked_kernels(errors, worst_ssd):
         c0 = _lm_counts(launch_counts())
         model.prefill(prompts, cache)
         c1 = _lm_counts(launch_counts())
@@ -1083,11 +1317,33 @@ def _check_on_activations(model, prompts, label: str) -> None:
           f"same activations "
           f"(launches: prefill {in_prefill}, decode {in_decode}): worst "
           f"err/tol " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    if worst_ssd:
+        # ssd_gap's gate on these activations, and a third witness at the
+        # (batch, head) farthest from the float32 plain route: the kernel's
+        # y, the float32 plain y and the kernel's order in plain torch
+        # (_ssd_order), each against y in float64 on the same inputs, in
+        # ssd_gap's unit without its 2^-20 mag term
+        gates = [e[2] for e in errors if e[0] == "ssd_scan vs float32"]
+        w = worst_ssd
+        y64 = _ssd_float64(w["x"], w["dt"], w["A"], w["B"], w["C"], w["chunk"])
+        order = _ssd_order(w["x"][None, :, None], w["dt"][None, :, None],
+                           torch.tensor([w["A"]], device=y64.device),
+                           w["B"][None], w["C"][None], chunk=w["chunk"])
+        print(f"[serve {cfg.name}] ssd_scan vs float32: gates "
+              f"{min(gates):.4f}-{max(gates):.4f} units over the launches; "
+              f"the farthest, launch {w['launch']} (batch {w['b']}, head "
+              f"{w['h']}), {w['gap']:.3f} units (gate {w['gate']:.4f}); there, "
+              f"against float64 without the mag term: the kernel "
+              f"{ssd_gap(w['y'], y64, None):.3f} units, its order in plain "
+              f"torch {ssd_gap(order[0, :, 0], y64, None):.3f}, the float32 "
+              f"plain route {ssd_gap(w['want'], y64, None):.3f}, float64 "
+              f"rounded to bf16 {ssd_gap(y64.bfloat16(), y64, None):.3f}")
     # two results a launch: every ssd_scan and rwkv6 launch of the serve path
-    # returns its final state, and a bf16 flash_attention is also held to
-    # the float32 plain route
-    per_launch = {"flash_attention": 2 if cfg.dtype == torch.bfloat16 else 1,
-                  "ssd_scan": 2, "rwkv6": 2}
+    # returns its final state, and a bf16 flash_attention or ssd_scan is
+    # also held to the float32 plain route
+    bf16 = cfg.dtype == torch.bfloat16
+    per_launch = {"flash_attention": 2 if bf16 else 1,
+                  "ssd_scan": 3 if bf16 else 2, "rwkv6": 2}
     n_results = sum(per_launch[name] * (c2[name] - c0[name])
                     for name in LM_KERNELS)
     check(len(errors) == n_results and not bad,

@@ -4,8 +4,10 @@ Every Mamba2 layer's prefill runs it (``models.ssm.mamba2_forward``;
 zamba2-7b: 81 times a prefill).  One CUDA block owns a (batch, head) and
 carries its (P, N) float32 state through the chunks in order; it takes an
 initial state, returns the final state itself, and takes a ragged L as the
-plain version pads it (see the note at the top of the source).  Its
-plain-torch version is ``kernels.ref.ssd_chunked_ref``.
+plain version pads it (see the note at the top of the source).  The dtypes
+pick the kernel inside the source: x, B and C all bfloat16 run the
+tensor-core kernel (``mma.sync``), every other combination the float32
+CUDA-core kernel.  Its plain-torch version is ``kernels.ref.ssd_chunked_ref``.
 """
 from __future__ import annotations
 

@@ -35,11 +35,28 @@ keys the sound order reads 1.35 units; the same order with its
 accumulator or its scores kept in bf16 reads 6.05 or 4.86, and one with a
 late rescale dropped hundreds, so the bound tells them apart
 (``test_bf16_gap_tells_the_kernel_order_from_faulty_ones``).  The SSD
-kernel accumulates in float32 in another order than the plain version's
+kernels accumulate in float32 in another order than the plain version's
 batched products: 1e-4 of the output's scale in float32, and in bf16 the
-output's rounding (2^-8 of the scale, with margin 2^-6).
+output's rounding (2^-8 of the scale, with margin 2^-6); the final state,
+float32 in both, to 1e-4 of its scale.  The bf16 SSD kernel runs its
+products on the tensor cores; each float32 operand (the weights
+G = (C.B^T) decay dt, the entering state, each update term w x) goes in
+as two bf16 halves, hi + lo, so ~2^-17 of it is lost, and y is rounded to
+bf16.  ``_ssd_tensor_core_order`` repeats that arithmetic on the CPU, and
+it and the card kernel are held, element by element, to the float32 plain
+route on the same bf16-valued inputs within SSD_GAP_C = 2 units of
+2^-8 |want| + 2^-9 max |want| over a head's P outputs + 2^-20 mag
+(``_ssd_gap``), mag the plain SSD of |x|, |B|, |C|: y's rounding is at
+most 1 unit, and the two-half operands (~2^-17 of each term) and float32's
+rounding of C.B^T and the sums (~2^-24) err in proportion to mag, which
+matters where a sum's terms cancel, as they do on real activations.  The
+sound order reads 0.44-0.66 units over the CPU cases; the same order with O kept in bf16 reads 8.12 where many keys
+reach each output (slow decays), and without the state update's lo half
+its state misses 1e-4 twentyfold
+(``test_ssd_gates_tell_the_kernel_order_from_faulty_ones``).
 """
 import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -433,6 +450,236 @@ def test_ssd_scan_dispatch_matches_pallas_interpret(jax_pkg, case):
     _close(got, want, 5e-2 if dtype == "bfloat16" else 1e-4)
 
 
+def _ssd_tensor_core_order(x, dt, A, Bm, Cm, *, chunk, initial_state=None,
+                           fault=None):
+    """The bf16 tensor-core SSD kernel's arithmetic in plain torch, on
+    bf16-valued x, B, C.  Per chunk: the float32 cumsum of dt * A; per
+    64-row query sub-block the inter term exp(cum[q]) C[q] S^T with the
+    entering state as two bf16 halves (hi = bf16(S), lo = bf16(S - hi));
+    per 64-key sub-block at or below the diagonal C[q] B[k]^T in float32,
+    G = that * exp(cum[q] - cum[k]) dt[k] where k <= q, split the same way,
+    and O += G_hi x[k] + G_lo x[k] in float32; y rounded to bf16.  The
+    state update S = exp(cum[end]) S + hi^T B + lo^T B, with w x
+    (w[k] = exp(cum[end] - cum[k]) dt[k]) split the same way.  ``fault`` makes it a kernel the
+    gates must reject: "o" keeps O in bf16 (rounded after the inter term
+    and after every 16 keys, an mma's depth), "lo" drops the state update's
+    lo half.  Returns (y in bf16, the final state in float32).  (The kernel
+    takes some decays as exp(cum[q] - cum[g]) exp(cum[g] - cum[k]); that
+    moves G by float32 roundings, far below the bf16 halves here.)"""
+    Bsz, L, H, P = x.shape
+    dev = x.device
+    xh = x.float().permute(0, 2, 1, 3)            # (B, H, L, P)
+    dth = dt.float().permute(0, 2, 1)             # (B, H, L)
+    Bf, Cf = Bm.float()[:, None], Cm.float()[:, None]   # (B, 1, L, N)
+    S = (torch.zeros((Bsz, H, P, Bm.shape[-1]), device=dev)
+         if initial_state is None else initial_state.float().clone())
+    y = torch.empty((Bsz, H, L, P), device=dev)
+    bq, bk = 64, 16 if fault == "o" else 64
+
+    def halves(v):
+        hi = v.bfloat16().float()
+        return hi, (v - hi).bfloat16().float()
+    for t0 in range(0, L, chunk):
+        Lc = min(chunk, L - t0)
+        d = dth[..., t0:t0 + Lc]
+        cum = torch.cumsum(d * A.float()[None, :, None], -1)
+        s_hi, s_lo = halves(S)
+        for q0 in range(0, Lc, bq):
+            rows = slice(q0, min(q0 + bq, Lc))
+            Cq = Cf[:, :, t0 + rows.start:t0 + rows.stop]
+            acc = (Cq @ s_hi.transpose(-1, -2) + Cq @ s_lo.transpose(-1, -2)) \
+                * torch.exp(cum[..., rows])[..., None]
+            if fault == "o":
+                acc = acc.bfloat16().float()
+            qpos = torch.arange(rows.start, rows.stop, device=dev)
+            for k0 in range(0, rows.stop, bk):
+                ks = slice(k0, min(k0 + bk, Lc))
+                s = Cq @ Bf[:, :, t0 + ks.start:t0 + ks.stop].transpose(-1, -2)
+                seen = (torch.arange(ks.start, ks.stop, device=dev)[None, :]
+                        <= qpos[:, None])
+                dec = cum[..., rows, None] - cum[..., None, ks]
+                G = torch.where(seen, s * torch.exp(torch.where(seen, dec, 0.0))
+                                * d[..., None, ks], 0.0)
+                g_hi, g_lo = halves(G)
+                acc = acc + (g_hi @ xh[..., t0 + ks.start:t0 + ks.stop, :]
+                             + g_lo @ xh[..., t0 + ks.start:t0 + ks.stop, :])
+                if fault == "o":
+                    acc = acc.bfloat16().float()
+            y[..., t0 + rows.start:t0 + rows.stop, :] = acc
+        w = torch.exp(cum[..., -1:] - cum) * d
+        hi, lo = halves(w[..., None] * xh[..., t0:t0 + Lc, :])
+        Bk = Bf[:, :, t0:t0 + Lc]
+        upd = hi.transpose(-1, -2) @ Bk
+        if fault != "lo":
+            upd = upd + lo.transpose(-1, -2) @ Bk
+        S = S * torch.exp(cum[..., -1])[..., None, None] + upd
+    return y.permute(0, 2, 1, 3).bfloat16(), S
+
+
+# y's element-wise gate in bf16 (ssd_gap); the module docstring says why 2
+SSD_GAP_C = 2.0
+
+
+def _ssd_magnitude(x, dt, A, Bm, Cm, *, chunk, initial_state=None):
+    """The plain SSD of |x|, |B|, |C| and |S_0|: at each output the sum of
+    the magnitudes of its terms (|C[q]|.|B[k]| decay dt[k] |x[k]| and the
+    inter term's), the scale of float32's rounding of C.B^T and the sums."""
+    return ref.ssd_chunked_ref(
+        x.float().abs(), dt, A, Bm.float().abs(), Cm.float().abs(),
+        chunk=chunk,
+        initial_state=None if initial_state is None else initial_state.abs())
+
+
+def _ssd_gap(got, want, mag):
+    """max |got - want| / (2^-8 |want| + 2^-9 max |want| of its P outputs
+    + 2^-20 mag), ``mag`` from ``_ssd_magnitude``."""
+    want = want.float()
+    unit = (2 ** -8 * want.abs() + 2 ** -9 * want.abs().amax(-1, keepdim=True)
+            + 2 ** -20 * mag)
+    return ((got.float() - want).abs() / unit).max().item()
+
+
+SSD_TC_CPU_CASES = [s[:6] + (False,) for s in SSD_PALLAS_CASES] + [
+    # the card's bf16 cases, cut to the CPU's size: (B, L, H, P, N, chunk, init)
+    (1, 200, 2, 8, 8, 16, True),             # P = N = 8
+    (1, 130, 2, 24, 24, 48, False),          # P, N not multiples of 16
+    (1, 300, 2, 40, 8, 100, True),           # chunk not a multiple of 64
+    (1, 700, 1, 24, 8, 1024, False),         # L < chunk
+    (1, 1, 2, 64, 64, 256, True),            # L = 1
+    (1, 50, 2, 40, 24, 1024, True),
+    (1, 90, 2, 12, 20, 32, True),            # rows not 16-byte aligned
+    (1, 33, 2, 5, 3, 16, False),             # odd P and N
+    (1, 512, 2, 64, 64, 256, False),         # zamba2's head, cut
+]
+
+
+def _ssd_bf16_inputs(case, dt_range=(0.01, 0.2)):
+    """x, dt, A, B, C and the initial state (or None), x, B and C in bf16,
+    from a numpy seed."""
+    B, L, H, P, N, chunk, init = case
+    rng = np.random.default_rng(sum(case[:6]) + 17)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+    x = t(rng.normal(size=(B, L, H, P))).bfloat16()
+    dt = t(rng.uniform(*dt_range, (B, L, H)))
+    A = t(-rng.uniform(0.5, 2.0, (H,)))
+    Bm = t(rng.normal(size=(B, L, N))).bfloat16()
+    Cm = t(rng.normal(size=(B, L, N))).bfloat16()
+    s0 = t(rng.normal(size=(B, H, P, N))) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("case", SSD_TC_CPU_CASES)
+def test_ssd_tensor_core_order_matches_reference(jax_pkg, case):
+    """The bf16 SSD kernel's rounding points stay within 2^-6 of y's scale
+    of the JAX reference in float32 on the same bf16-valued inputs, within
+    SSD_GAP_C units of it element by element, and its final state within
+    1e-4 of the state's scale."""
+    x, dt, A, Bm, Cm, s0 = _ssd_bf16_inputs(case)
+    jnp = jax_pkg.jnp
+    want, want_s = jax_pkg.ref.ssd_chunked_ref(
+        *(jnp.asarray(_np(t)) for t in (x, dt, A, Bm, Cm)), chunk=case[5],
+        initial_state=None if s0 is None else jnp.asarray(_np(s0)),
+        return_state=True)
+    got, got_s = _ssd_tensor_core_order(x, dt, A, Bm, Cm, chunk=case[5],
+                                        initial_state=s0)
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    want, want_s = np.asarray(want), np.asarray(want_s)
+    assert np.abs(_np(got) - want).max() <= 2 ** -6 * np.abs(want).max()
+    mag = _ssd_magnitude(x, dt, A, Bm, Cm, chunk=case[5], initial_state=s0)
+    assert _ssd_gap(got, torch.from_numpy(want.copy()), mag) <= SSD_GAP_C
+    assert np.abs(_np(got_s) - want_s).max() <= 1e-4 * np.abs(want_s).max()
+
+
+@pytest.mark.parametrize("case", SSD_TC_CPU_CASES)
+def test_ssd_tensor_core_order_matches_plain_version(case):
+    """... and the port's plain version on the same bf16 inputs within the
+    bounds the card holds the kernel to."""
+    x, dt, A, Bm, Cm, s0 = _ssd_bf16_inputs(case)
+    kw = dict(chunk=case[5], initial_state=s0, return_state=True)
+    got, got_s = _ssd_tensor_core_order(x, dt, A, Bm, Cm, chunk=case[5],
+                                        initial_state=s0)
+    want, want_s = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, **kw)
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= 2 ** -6 * scale
+    assert (got_s - want_s).abs().max() <= 1e-4 * want_s.abs().max()
+
+
+# the gates' controls: (B, L, H, P, N, chunk, init) and dt's range
+SSD_SLOW_DECAY = ((1, 2048, 2, 64, 64, 1024, True), (1e-4, 1e-3))
+SSD_RANDOM_DECAY = ((1, 512, 2, 64, 64, 256, False), (0.01, 0.2))
+
+
+@pytest.mark.parametrize("fault,inputs", [
+    (None, SSD_SLOW_DECAY), (None, SSD_RANDOM_DECAY),
+    ("o", SSD_SLOW_DECAY), ("lo", SSD_RANDOM_DECAY)])
+def test_ssd_gates_tell_the_kernel_order_from_faulty_ones(fault, inputs):
+    """The kernel's order passes y's ssd_gap and the state's 1e-4 gate; the
+    same order with O kept in bf16 fails ssd_gap, and without the state
+    update's lo half fails the state's gate.  A bf16 O rounds one partial
+    sum per 16 keys, which shows where many keys reach each output: with
+    dt * A of at most 2e-3 a whole 1024-step chunk contributes (with the
+    random cases' dt * A of up to 0.4 a few keys do, and a bf16 O reads
+    about as the sound order does).  A dropped lo half shows where the
+    chunk's update, not a slowly decaying initial state, makes the state."""
+    case, dt_range = inputs
+    x, dt, A, Bm, Cm, s0 = _ssd_bf16_inputs(case, dt_range=dt_range)
+    got, got_s = _ssd_tensor_core_order(x, dt, A, Bm, Cm, chunk=case[5],
+                                        initial_state=s0, fault=fault)
+    want, want_s = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(),
+                                       Cm.float(), chunk=case[5],
+                                       initial_state=s0, return_state=True)
+    gap = _ssd_gap(got, want, _ssd_magnitude(x, dt, A, Bm, Cm, chunk=case[5],
+                                             initial_state=s0))
+    state_err = ((got_s - want_s).abs().max() / want_s.abs().max()).item()
+    assert (gap <= SSD_GAP_C) == (fault != "o"), gap
+    assert (state_err <= 1e-4) == (fault != "lo"), state_err
+
+
+def _chip_smoke():
+    import importlib
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("fault", [None, "o"])
+def test_chip_smoke_ssd_order_is_the_emulated_order(fault):
+    """chip_smoke.py's kernel order (its witness on the serve path's
+    activations) and bf16-O order (its on-card control) repeat this file's
+    exactly, and its ssd_gap is this file's _ssd_gap."""
+    cs = _chip_smoke()
+    case, dt_range = SSD_SLOW_DECAY
+    case = (1, 300, 2) + case[3:5] + (128, True)
+    x, dt, A, Bm, Cm, s0 = _ssd_bf16_inputs(case, dt_range=dt_range)
+    kw = dict(chunk=case[5], initial_state=s0)
+    got = cs._ssd_order(x, dt, A, Bm, Cm, o_bf16=fault == "o", **kw)
+    want, _ = _ssd_tensor_core_order(x, dt, A, Bm, Cm, fault=fault, **kw)
+    assert torch.equal(got, want)
+    y32 = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(), **kw)
+    mag = _ssd_magnitude(x, dt, A, Bm, Cm, **kw)
+    assert cs.ssd_gap(got, y32, mag) == _ssd_gap(got, y32, mag)
+
+
+@pytest.mark.parametrize("L,chunk", [(512, 256), (300, 128)])
+def test_chip_smoke_ssd_float64_matches_reference(jax_pkg, L, chunk):
+    """chip_smoke.py's float64 witness for one (batch, head) agrees with
+    the JAX reference in float32 to 1e-5 of y's scale."""
+    cs = _chip_smoke()
+    x, dt, A, Bm, Cm, _ = _ssd_bf16_inputs((1, L, 2, 16, 8, chunk, False))
+    jnp = jax_pkg.jnp
+    want = np.asarray(jax_pkg.ref.ssd_chunked_ref(
+        *(jnp.asarray(_np(t)) for t in (x, dt, A, Bm, Cm)), chunk=chunk))
+    for h in range(2):
+        got = cs._ssd_float64(x[0, :, h], dt[0, :, h], A[h].item(), Bm[0],
+                              Cm[0], chunk).numpy()
+        assert np.abs(got - want[0, :, h]).max() <= \
+            1e-5 * np.abs(want[0, :, h]).max()
+
+
 # ------------------------------ layers -------------------------------- #
 def test_rms_norm_and_rope_match_reference(jax_pkg):
     jnp = jax_pkg.jnp
@@ -652,6 +899,22 @@ def test_flash_attention_bf16_kernel_matches_f32_kernel_on_card(cuda, case):
     assert _bf16_gap(got, want) <= BF16_GAP_C
 
 
+def _card_ssd_inputs(cuda, case, dtype, seed):
+    """x, dt, A, B, C (x, B, C in ``dtype``) and an initial state or None
+    for ``case`` = (B, L, H, P, N, chunk, init[, dt's range]), on the card
+    from ``seed``; dt in [0.01, 0.2] unless the case names its range."""
+    B, L, H, P, N, chunk, init = case[:7]
+    lo, hi = case[7] if len(case) > 7 else (0.01, 0.2)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g, device=cuda).to(dtype)
+    Bm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
+    Cm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
+    dt = torch.rand((B, L, H), generator=g, device=cuda) * (hi - lo) + lo
+    A = -(torch.rand((H,), generator=g, device=cuda) * 1.5 + 0.5)
+    s0 = torch.randn((B, H, P, N), generator=g, device=cuda) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
@@ -660,14 +923,9 @@ def test_flash_attention_bf16_kernel_matches_f32_kernel_on_card(cuda, case):
     (1, 50, 2, 16, 8, 1024, True)])
 def test_ssd_scan_kernel_matches_plain_on_card(cuda, case, dtype):
     from repro_torch.kernels import ssm_scan
-    B, L, H, P, N, chunk, init = case
-    g = torch.Generator(device=cuda).manual_seed(L + H)
-    x = torch.randn((B, L, H, P), generator=g, device=cuda).to(dtype)
-    Bm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
-    Cm = torch.randn((B, L, N), generator=g, device=cuda).to(dtype)
-    dt = torch.rand((B, L, H), generator=g, device=cuda) * 0.19 + 0.01
-    A = -(torch.rand((H,), generator=g, device=cuda) * 1.5 + 0.5)
-    s0 = torch.randn((B, H, P, N), generator=g, device=cuda) if init else None
+    chunk = case[5]
+    x, dt, A, Bm, Cm, s0 = _card_ssd_inputs(cuda, case, dtype,
+                                            case[1] + case[2])
     before = ssm_scan.launches
     y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=s0,
                         return_state=True)
@@ -681,6 +939,118 @@ def test_ssd_scan_kernel_matches_plain_on_card(cuda, case, dtype):
     assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
     assert torch.equal(ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
                                     initial_state=s0), y)
+    if dtype == torch.bfloat16:   # and element by element, against float32
+        kw = dict(chunk=chunk, initial_state=s0)
+        want = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                   **kw)
+        mag = _ssd_magnitude(x, dt, A, Bm, Cm, **kw)
+        assert _ssd_gap(y, want, mag) <= SSD_GAP_C
+
+
+# zamba2's full width and chunk at slow decays (dt * A below 2e-3): every
+# key of a chunk reaches each output, where a bf16 accumulator shows
+CARD_SSD_SLOW_DECAY = (2, 2048, 112, 64, 64, 256, True, SSD_SLOW_DECAY[1])
+CARD_SSD_BF16_CASES = [
+    # the shapes the tensor-core kernel masks or pads: (B, L, H, P, N,
+    # chunk, init)
+    (1, 200, 3, 8, 8, 16, True),             # P = N = 8, chunk 16
+    (2, 130, 2, 24, 24, 48, False),          # P, N not multiples of 16
+    (1, 300, 2, 40, 8, 100, True),           # chunk not a multiple of 64
+    (1, 700, 2, 24, 8, 1024, False),         # L < chunk
+    (2, 1, 3, 64, 64, 256, True),            # L = 1
+    (1, 50, 2, 40, 24, 1024, True),
+    (1, 90, 2, 12, 20, 32, True),            # rows not 16-byte aligned
+    (1, 33, 2, 5, 3, 16, False),             # odd P and N
+    (2, 2048, 4, 64, 64, 256, False),        # zamba2's head and chunk
+    (2, 2000, 4, 64, 64, 256, True),         # ragged, initial state
+    CARD_SSD_SLOW_DECAY,
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_SSD_BF16_CASES)
+def test_ssd_scan_bf16_kernel_matches_plain_on_card(cuda, case):
+    """The tensor-core kernel at the shapes it masks or pads, against the
+    plain version on the same bf16 inputs (2^-6 of y's scale, the final
+    state to 1e-4 of its scale) and against the plain route in float32
+    element by element (ssd_gap); repeated calls are equal."""
+    from repro_torch.kernels import ssm_scan
+    x, dt, A, Bm, Cm, s0 = _card_ssd_inputs(cuda, case, torch.bfloat16,
+                                            sum(case[:6]))
+    kw = dict(chunk=case[5], initial_state=s0)
+    before = ssm_scan.launches
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, return_state=True, **kw)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1 and y.dtype == torch.bfloat16
+    yr, sr = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, return_state=True, **kw)
+    assert (y.float() - yr.float()).abs().max() <= \
+        2 ** -6 * yr.float().abs().max()
+    assert (s - sr).abs().max() <= 1e-4 * sr.abs().max()
+    want = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(), **kw)
+    mag = _ssd_magnitude(x, dt, A, Bm, Cm, **kw)
+    assert _ssd_gap(y, want, mag) <= SSD_GAP_C
+    assert torch.equal(ops.ssd_scan(x, dt, A, Bm, Cm, **kw), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_SSD_BF16_CASES)
+def test_ssd_scan_bf16_kernel_matches_f32_kernel_on_card(cuda, case):
+    """The tensor-core bf16 kernel against the CUDA-core float32 kernel on
+    the same (bf16-valued) inputs: the two kernels' arithmetic, directly,
+    within 2^-6 of y's scale and SSD_GAP_C units element by element, the
+    final states within 1e-4 of their scale."""
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+    x, dt, A, Bm, Cm, s0 = _card_ssd_inputs(cuda, case, torch.bfloat16,
+                                            sum(case[:6]) + 1)
+    kw = dict(chunk=case[5], initial_state=s0, return_state=True)
+    y, s = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+    want, want_s = ssd_scan_cuda(x.float(), dt, A, Bm.float(), Cm.float(),
+                                 **kw)
+    torch.cuda.synchronize()
+    assert (y.float() - want).abs().max() <= 2 ** -6 * want.abs().max()
+    mag = _ssd_magnitude(x, dt, A, Bm, Cm, chunk=case[5], initial_state=s0)
+    assert _ssd_gap(y, want, mag) <= SSD_GAP_C
+    assert (s - want_s).abs().max() <= 1e-4 * want_s.abs().max()
+
+
+@pytest.mark.cuda
+def test_ssd_gap_rejects_a_bf16_accumulator_on_card(cuda):
+    """At zamba2's full width and chunk and slow decays, the kernel passes
+    ssd_gap and the kernel's order with O kept in bf16, run on the card,
+    fails it: the gate's power at the serve shape's width."""
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+    case = CARD_SSD_SLOW_DECAY
+    x, dt, A, Bm, Cm, s0 = _card_ssd_inputs(cuda, case, torch.bfloat16, 11)
+    kw = dict(chunk=case[5], initial_state=s0)
+    y = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+    want = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(), **kw)
+    mag = _ssd_magnitude(x, dt, A, Bm, Cm, **kw)
+    assert _ssd_gap(y, want, mag) <= SSD_GAP_C
+    fault, _ = _ssd_tensor_core_order(x, dt, A, Bm, Cm, fault="o", **kw)
+    assert _ssd_gap(fault, want, mag) > SSD_GAP_C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", [(64, 64), (24, 8)])
+def test_ssd_scan_bf16_kernel_takes_unaligned_rows_on_card(cuda, P, N):
+    """x, B and C that start one element past a 16-byte boundary go
+    through the kernel's plain loads and give the same bits as aligned
+    copies through its cp.async copies."""
+    from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+    case = (2, 300, 3, P, N, 128, True)
+    x, dt, A, Bm, Cm, s0 = _card_ssd_inputs(cuda, case, torch.bfloat16, 5)
+
+    def shifted(t):   # the same values at an address 2 bytes past aligned
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 2
+        return view
+    kw = dict(chunk=case[5], initial_state=s0, return_state=True)
+    y, s = ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+    y1, s1 = ssd_scan_cuda(shifted(x), dt, A, shifted(Bm), shifted(Cm), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y1) and torch.equal(s, s1)
 
 
 @pytest.mark.cuda
