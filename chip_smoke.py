@@ -887,15 +887,11 @@ def rwkv6_rel_tol(w, chunk: int, base: float) -> float:
     return base + 2.0 ** -20 * cum.abs().max().item()
 
 
-def _rwkv6_case(device, dtype, shape, chunk: int, init: bool, label: str
-                ) -> dict:
-    """Hold ``rwkv6`` to its plain version on random inputs of ``shape`` =
-    (B, L, H, K) (V = K; final state included), with the model's range of
-    decays, and time both."""
+def _rwkv6_inputs(device, dtype, shape, chunk: int, init: bool):
+    """r, k, v (B, L, H, K) in ``dtype`` (V = K), w float32 with the model's
+    range of decays, u and, with ``init``, an initial state; seeded by the
+    shape and the chunk."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6 import rwkv6_cuda
-
     B, L, H, K = shape
     g = torch.Generator(device=device).manual_seed(L + H + chunk)
     r, k, v = (torch.randn((B, L, H, K), generator=g, device=device).to(dtype)
@@ -906,6 +902,20 @@ def _rwkv6_case(device, dtype, shape, chunk: int, init: bool, label: str
     u = (0.5 * torch.randn((H, K), generator=g, device=device)).to(dtype)
     s0 = (torch.randn((B, H, K, K), generator=g, device=device) if init
           else None)
+    return r, k, v, w, u, s0
+
+
+def _rwkv6_case(device, dtype, shape, chunk: int, init: bool, label: str
+                ) -> dict:
+    """Hold ``rwkv6`` to its plain version on random inputs of ``shape`` =
+    (B, L, H, K) (V = K; final state included), with the model's range of
+    decays, and time both."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+
+    B, L, H, K = shape
+    r, k, v, w, u, s0 = _rwkv6_inputs(device, dtype, shape, chunk, init)
     kw = dict(chunk=chunk, initial_state=s0, return_state=True)
 
     y_k, s_k = rwkv6_cuda(r, k, v, w, u, **kw)
@@ -960,9 +970,10 @@ def phase_kernel_rwkv6(device) -> dict:
     H = 32, K = V = 64, chunk 16, from a zero state), at its decode shape
     (L = 1, chunk 1, from a carried state) and at a ragged L = 2000 with an
     initial state, final state held in each, in bf16 and f32; the row
-    reported is the prefill shape in bf16, the path's dtype.  The WKV
-    arithmetic is float32 whatever the inputs' dtype, so the bound takes
-    the float32 peak."""
+    reported is the prefill shape in bf16, the path's dtype; then the
+    prefill shape in bf16 over B = 1, 2, 4, 8.  The WKV arithmetic is
+    float32 whatever the inputs' dtype, so the bound takes the float32
+    peak."""
     import torch
     row = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -973,6 +984,23 @@ def phase_kernel_rwkv6(device) -> dict:
                     "decode shape")
         _rwkv6_case(device, dtype, (2, 2000, 32, 64), 16, True,
                     "ragged L, initial state")
+    # One block walks one (batch, head)'s 128 chunks in order: B = 1-4 put
+    # one block on each of 32-128 SMs, so their time is one block's chain;
+    # B = 8 puts two blocks on most SMs
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+    serve_shape = (SERVE_BATCH, SERVE_PROMPT, 32, 64)
+    r, k, v, w, u, _ = _rwkv6_inputs(device, torch.bfloat16, serve_shape, 16,
+                                     False)
+    sweep = []
+    for b in (1, 2, 4, 8):
+        rb, kb, vb, wb = (t[:b].contiguous() for t in (r, k, v, w))
+        ms, _ = cuda_ms(lambda: rwkv6_cuda(rb, kb, vb, wb, u, chunk=16,
+                                           return_state=True),
+                        iters=10, reps=5)
+        sweep.append(f"B={b} {ms:.4f} ms")
+    print(f"[kernels] rwkv6 prefill shape bfloat16 over the batch: "
+          f"{', '.join(sweep)}")
+    del r, k, v, w
     torch.cuda.empty_cache()
     return {"name": "rwkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6.cu",

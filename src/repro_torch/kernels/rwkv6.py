@@ -3,12 +3,14 @@
 Every RWKV6 layer runs it, in prefill and in every decode step
 (``models.rwkv.rwkv6_time_mix``; rwkv6-1.6b: 24 times a prefill and 24
 times a decode step, the latter at L = 1 and chunk 1 from the carried
-state).  One CUDA block owns a (batch, head) and carries its (K, V) float32
-state through the chunks in order; it takes an initial state, returns the
-final state itself, takes a ragged L as the plain version pads it, and
-takes each pair's decay directly rather than split across the operands
-(see the note at the top of the source).  Its plain-torch version is
-``kernels.ref.rwkv6_chunked_ref``.
+state).  One CUDA block owns a (batch, head), carries its (K, V) float32
+state in registers through the chunks in order and prefetches the next
+chunk with ``cp.async``; it takes an initial state, returns the final state
+itself, takes a ragged L as the plain version pads it, and forms each
+chunk's weights split across the operands as the plain version does where
+that cannot overflow (largest |cumsum of w| over the chunk at most 64),
+else with each pair's decay taken directly (see the note at the top of the
+source).  Its plain-torch version is ``kernels.ref.rwkv6_chunked_ref``.
 """
 from __future__ import annotations
 

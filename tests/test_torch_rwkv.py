@@ -19,6 +19,12 @@ On the CPU, inputs made with numpy from a seed:
   Pallas route; the port's prefill/decode consistency; the seeded init of
   the RWKV leaves; ``launch.serve`` for ``rwkv6-1.6b`` on the CPU.
 
+Also on the CPU, ``_wkv_kernel_order``: the card kernel's arithmetic in
+plain torch (its cumsum by 16-lane scans, the split or direct form a chunk
+at a time, its partial sums and their order) against the reference's
+chunked and token-by-token oracles, and its need of the direct form past
+the cutoff.
+
 On the card (``cuda`` marker): ``rwkv6_cuda`` against its twin.
 
 Tolerances.  Float32: the twins repeat the reference's operations with
@@ -31,18 +37,20 @@ at other places, so the port's bf16 logits are held to the reference's
 float32 ones, no farther than the reference's own bf16 run (1.5x per
 logit row, 1.25x on the RMS over all rows, as for zamba2).  The
 prefill/decode consistency check has ``tests/test_arch_smoke.py``'s 5% of
-the logits' scale.  On the card the kernel takes each pair's decay
-directly, exp(wcum_{t-1} - wcum_s), where the twin splits it across the
-operands; both accumulate in float32 in another order, so 1e-4 of the
-output's scale plus 2^-20 of max|wcum| for the decays' float32
-sensitivity, and in bf16 the output's rounding (2^-8 of the scale, with
-margin 2^-6).
+the logits' scale.  On the card the kernel splits each pair's decay
+across the operands as the twin does, but takes it directly,
+exp(wcum_{t-1} - wcum_s), in a chunk whose |cumsum of w| passes 64; both
+accumulate in float32 in another order, so 1e-4 of the output's scale plus
+2^-20 of max|wcum| for the decays' float32 sensitivity, and in bf16 the
+output's rounding (2^-8 of the scale, with margin 2^-6).  The kernel's
+order in plain torch is held to the same float32 bound.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from _port_parity import interpret_reference_lm_kernels
 from repro_torch.configs import get_config
@@ -218,6 +226,195 @@ def test_split_decay_overflows_past_chunk_22_as_the_reference_does(jax_pkg,
     if finite:
         _close(yt, ys, 1e-4)
         _close(yt, yj, 1e-4)
+
+
+# ----------------------- the kernel's order of sums ---------------------- #
+SPLIT_CUT = 64.0    # the largest |total| the kernel takes in the split form
+
+
+def _w_pattern(w, mode, chunk):
+    """The decays of a case: the model's random range (None), every w at
+    the clamp (-4: |total| = 4 chunk), or chunks that alternate between
+    -3.5 everywhere (even chunks) and the random range shrunk to [-1, 0)
+    (odd chunks)."""
+    if mode == "clamp":
+        return np.full_like(w, -4.0)
+    if mode == "straddle":
+        out = np.maximum(w, -1.0)
+        even = (np.arange(w.shape[1]) // chunk) % 2 == 0
+        out[:, even] = -3.5
+        return out
+    return w
+
+
+def _wkv_kernel_order(r, k, v, w, u, *, chunk, initial_state=None,
+                      force_split=False):
+    """``csrc/rwkv6.cu``'s arithmetic in plain torch float32, with its
+    order of sums (mul and add rounded apart where the kernel fuses them):
+
+    - the cumsum of w by 16-row blocks, each a Hillis-Steele scan (steps
+      1, 2, 4, 8) plus the blocks before it; total is the scan's last row;
+    - per (batch, head) chunk the split form where every |total| over K is
+      at most SPLIT_CUT (``force_split``: always), else the direct form;
+    - A below the diagonal and the bonus as four partial sums, quarter q
+      over k = 4 (q + 4 i) + 0..3 in that order, reduced (q0 + q1) +
+      (q2 + q3);
+    - y as four partial sums, quarter q over k = q mod 4 ascending and then
+      s = q mod 4 ascending below 4 (t // 4) + 4, reduced (q0 + q2) +
+      (q1 + q3);
+    - S = exp(total) S, then k_tail[s]^T v[s] added row by row.
+
+    Returns y (float32), the final state and the number of (batch, head)
+    chunks that took the direct form."""
+    f32 = torch.float32
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    u = u.to(f32)
+    Bsz, L, H, K = r.shape
+    V = v.shape[-1]
+    K4 = -(-K // 4) * 4
+    qp = -(-chunk // 4) * 4
+    n_chunks = -(-L // chunk)
+
+    def rows(x, width):      # (B, H, n_chunks, qp, width): zero past L, K4
+        x = F.pad(x, (0, width - x.shape[-1], 0, 0, 0, n_chunks * chunk - L))
+        x = x.reshape(Bsz, n_chunks, chunk, H, width).permute(0, 3, 1, 2, 4)
+        return F.pad(x, (0, 0, 0, qp - chunk))
+    rc, kc, wc_in = rows(r, K4), rows(k, K4), rows(w, K4)
+    vc = rows(v, V)
+    u4 = F.pad(u, (0, K4 - K))                                  # (H, K4)
+    S = (torch.zeros((Bsz, H, K4, V), dtype=f32) if initial_state is None
+         else F.pad(initial_state.to(f32), (0, 0, 0, K4 - K)))
+    ys, n_direct = [], 0
+    rr = torch.arange(qp)
+    lower = rr[:, None] > rr[None, :]                           # s < t
+    for c in range(n_chunks):
+        Lc = min(chunk, L - c * chunk)
+        rw, kw, vw, ww = (x[:, :, c] for x in (rc, kc, vc, wc_in))
+        # cumsum: 16-row blocks, a Hillis-Steele scan each, plus the carry
+        blocks, carry = [], torch.zeros((Bsz, H, 1, K4), dtype=f32)
+        for rb in range(0, qp, 16):
+            x = F.pad(ww[:, :, rb:rb + 16], (0, 0, 0, 16 - min(16, qp - rb)))
+            for d in (1, 2, 4, 8):
+                x = torch.cat([x[:, :, :d], x[:, :, d:] + x[:, :, :-d]], 2)
+            x = x + carry
+            carry = x[:, :, 15:16]
+            blocks.append(x)
+        wcum = torch.cat(blocks, 2)[:, :, :qp]
+        total = carry                                            # (B,H,1,K4)
+        safe = total.abs() <= SPLIT_CUT
+        ri = rw * torch.exp(wcum - ww)
+        kt = kw * torch.exp(total - wcum)
+        kn = kw * torch.exp(-wcum)
+        if not force_split:
+            kn = torch.where(safe, kn, torch.zeros(()))
+        direct = ~safe.all(-1) & (not force_split)               # (B,H,1)
+        n_direct += int(direct.sum())
+        # A: four partial sums over K, quarter q taking k = 4 (q + 4 i) + j
+        split_p = torch.zeros((4, Bsz, H, qp, qp), dtype=f32)
+        direct_p = torch.zeros_like(split_p)
+        bonus_p = torch.zeros((4, Bsz, H, qp), dtype=f32)
+        for i in range(0, K4, 16):
+            for j in range(4):
+                for q in range(4):
+                    kk = i + 4 * q + j
+                    if kk >= K4:
+                        continue
+                    split_p[q] = split_p[q] + (ri[..., :, None, kk]
+                                               * kn[..., None, :, kk])
+                    decay = torch.exp((wcum[..., :, None, kk]
+                                       - ww[..., :, None, kk])
+                                      - wcum[..., None, :, kk])
+                    direct_p[q] = direct_p[q] + (rw[..., :, None, kk]
+                                                 * kw[..., None, :, kk]) * decay
+                    bonus_p[q] = bonus_p[q] + (rw[..., kk] * u4[:, kk, None]
+                                               ) * kw[..., kk]
+        reduce4 = (lambda p: (p[0] + p[1]) + (p[2] + p[3]))
+        A = torch.where(direct[..., None], reduce4(direct_p), reduce4(split_p))
+        A = torch.where(lower, A, torch.zeros(()))
+        A = A + torch.diag_embed(reduce4(bonus_p))
+        live = rr < Lc
+        A = torch.where(live[:, None] & live[None, :], A, torch.zeros(()))
+        # y: four partial sums, quarter q over k = q mod 4, then s = q mod 4
+        part = torch.zeros((4, Bsz, H, qp, V), dtype=f32)
+        for kk in range(K4):
+            part[kk % 4] = part[kk % 4] + ri[..., :, kk, None] * S[..., None, kk, :]
+        s_end = torch.clamp(4 * (rr // 4) + 4, max=Lc)           # per row t
+        for s in range(qp):
+            add = A[..., :, s, None] * vw[..., None, s, :]
+            part[s % 4] = part[s % 4] + torch.where(
+                (s < s_end)[:, None], add, torch.zeros(()))
+        ys.append(((part[0] + part[2]) + (part[1] + part[3]))[:, :, :Lc])
+        # the state: decay, then the chunk's rows in order
+        S = S * torch.exp(total).transpose(-1, -2)
+        for s in range(Lc):
+            S = S + kt[..., s, :, None] * vw[..., s, None, :]
+    y = torch.cat(ys, 2).permute(0, 2, 1, 3)                     # (B,L,H,V)
+    return y, S[:, :, :K], n_direct
+
+
+EMU_CASES = [
+    # (B, L, H, K, V, chunk, init, w): each (batch, head) chunk's form is
+    # checked too -- the model's decays at chunk <= 16 never leave the split
+    (2, 37, 2, 16, 16, 8, True, None),        # ragged, initial state
+    (1, 50, 2, 64, 64, 16, True, None),       # the full head, ragged
+    (2, 3, 2, 64, 64, 1, True, None),         # decode's chunk 1
+    (1, 48, 2, 64, 64, 16, False, "clamp"),   # |total| = 64: all split
+    (1, 70, 2, 16, 16, 20, True, "straddle"), # direct and split in turn
+    (1, 29, 2, 6, 10, 8, True, None),         # K, V not multiples of 4
+]
+
+
+@pytest.mark.parametrize("case", EMU_CASES)
+def test_kernel_order_matches_reference(jax_pkg, case):
+    """The kernel's arithmetic (its order of sums, the split and direct
+    forms at the cutoff) against the JAX package's chunked oracle and its
+    token-by-token oracle, in float32: 1e-4 of the scale for the order of
+    sums, plus 2^-20 of max |wcum| for the decays' float32 sensitivity (the
+    card tests' tolerance)."""
+    B, L, H, K, V, chunk, init, wmode = case
+    inp = _wkv_np(B, L, H, K, V, seed=L + K + chunk, init=init)
+    inp["w"] = _w_pattern(inp["w"], wmode, chunk)
+    s0 = torch.from_numpy(inp["s0"]) if init else None
+    y, s, n_direct = _wkv_kernel_order(*_torch_args(inp), chunk=chunk,
+                                       initial_state=s0)
+    n_chunks = -(-L // chunk)
+    assert n_direct == (B * H * ((n_chunks + 1) // 2) if wmode == "straddle"
+                        else 0)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    jnp = jax_pkg.jnp
+    s0j = jnp.asarray(inp["s0"]) if init else None
+    for name, (yj, sj) in (
+            ("chunked", jax_pkg.ref.rwkv6_chunked_ref(
+                *_jax_args(jnp, inp), chunk=chunk, initial_state=s0j,
+                return_state=True)),
+            ("sequential", jax_pkg.ref.rwkv6_sequential_ref(
+                *_jax_args(jnp, inp), initial_state=s0j))):
+        for got, want in ((y, yj), (s, sj)):
+            want = _np(want)
+            tol = (1e-4 + 2 ** -20 * 4 * chunk) * np.abs(want).max()
+            assert np.abs(_np(got) - want).max() <= tol, name
+
+
+@pytest.mark.parametrize("force_split", [False, True])
+def test_kernel_order_needs_the_direct_form_past_the_cutoff(force_split):
+    """At w = -4 and chunk 24 (|total| = 96) the split form's exp(-wcum)
+    passes float32's range: the kernel's order, which takes the direct form
+    there, stays finite and matches the token-by-token oracle; forced to
+    split, it does not."""
+    inp = _wkv_np(1, 48, 2, 16, 16, seed=4, init=True)
+    inp["w"] = np.full_like(inp["w"], -4.0)
+    s0 = torch.from_numpy(inp["s0"])
+    y, s, n_direct = _wkv_kernel_order(*_torch_args(inp), chunk=24,
+                                       initial_state=s0,
+                                       force_split=force_split)
+    if force_split:
+        assert not torch.isfinite(y).all()
+        return
+    assert n_direct == 2 * 2
+    ys, ss = ref.rwkv6_sequential_ref(*_torch_args(inp), initial_state=s0)
+    for got, want in ((y, ys), (s, ss)):
+        tol = (1e-4 + 2 ** -20 * 96) * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
 
 
 PALLAS_CASES = [
@@ -586,8 +783,11 @@ def test_rwkv6_serve_runs_end_to_end_on_the_cpu(capsys):
 
 # ------------------------------ the card ------------------------------ #
 def _card_inputs(case, dtype, device):
-    B, L, H, K, V, chunk, init = case
+    """A case is (B, L, H, K, V, chunk, init) and optionally the decays'
+    pattern (``_w_pattern``) as its 8th element."""
+    B, L, H, K, V, chunk, init = case[:7]
     inp = _wkv_np(B, L, H, K, V, seed=B + L + H + K + V + chunk, init=init)
+    inp["w"] = _w_pattern(inp["w"], case[7] if len(case) > 7 else None, chunk)
     args = _torch_args(inp, "bfloat16" if dtype == torch.bfloat16
                        else "float32", device)
     s0 = torch.from_numpy(inp["s0"]).to(device) if init else None
@@ -609,6 +809,15 @@ CARD_CASES = [
     (2, 300, 4, 64, 32, 16, True),       # K != V
     (1, 5, 2, 8, 8, 16, True),           # one chunk, shorter than the chunk
     (2, 2000, 32, 64, 64, 16, True),     # the ragged case of chip_smoke.py
+    (2, 200, 4, 64, 64, 16, True, "clamp"),      # w = -4: |total| = 64, split
+    (2, 200, 4, 64, 64, 20, True, "straddle"),   # direct and split in turn
+    (1, 300, 32, 64, 64, 16, False),     # B = 1 at the serve width
+    (3, 300, 32, 64, 64, 16, True),      # B = 3 at the serve width
+    (2, 100, 3, 64, 36, 16, True),       # V not a multiple of y's 32-column
+                                         # warps (nor, in bf16, of 8)
+    (1, 70, 2, 24, 42, 8, True),         # K != V, V not a multiple of 4
+    (1, 50, 2, 5, 7, 3, True),           # K not a multiple of 4: the
+                                         # stage's zeroed columns past K
 ]
 
 
