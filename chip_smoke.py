@@ -27,7 +27,11 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               through the threaded, vectorized and sharded engines, held
               equal to each other; and 8 requests through a
               ``KnowledgeService`` that refits on the card;
-6. serve   -- zamba2-7b at full width and depth (81 Mamba2 layers, the
+6. baselines -- the paper's comparison on xsede as ``benchmarks/common.py::
+              build_world`` sets it up: the ASM tuner fitted on the card, the
+              six baselines with ANN+OT trained on the card (held to the same
+              training on the CPU), a miniature Fig. 5 and Fig. 6;
+7. serve   -- zamba2-7b at full width and depth (81 Mamba2 layers, the
               shared attention block 13 times, d_model 3584), weights from
               a seeded generator on the card: 8 seeded prompts of 2048
               tokens, prefill, then 64 greedy decode steps through
@@ -36,15 +40,23 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               forced on the kernel run's tokens); one prefill launches
               exactly 81 ``ssd_scan`` and 13 ``flash_attention``, decode
               neither;
-7. serve   -- rwkv6-1.6b at full width and depth (24 RWKV6 layers,
+8. serve   -- rwkv6-1.6b at full width and depth (24 RWKV6 layers,
               d_model 2048, 32 heads of 64) the same way; one prefill and
-              every decode step each launch exactly 24 ``rwkv6``.
+              every decode step each launch exactly 24 ``rwkv6``;
+9. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
+              tree on the card; rwkv6-1.6b's full weights saved to disk under
+              its recommendation and under (1, 1, 1), restored to the card
+              bit for bit, and one prefill through the restored model (24
+              ``rwkv6``, logits equal to the original's); ``TokenPipeline``
+              at the serve shape fed to the card.
 
-Phases 3 to 7 are the main path: every kernel's launch count is set to
-0 just before each and read just after, and a kernel that the path did not
-launch fails the run.  Each ends with one more, profiled run of its fit,
-fleet or decode steps, which reports how much of its wall time the card
-spent running kernels.
+Phases 3 to 9 are the main path: every kernel's launch count is set to
+0 just before each and read just after (phase 9: just around the restored
+model's prefill), and a kernel that the path did not launch fails the run.
+Phases 3 to 6 end with one more, profiled run of a fit, a fleet or a
+training, and phases 7-8 profile decode steps and a prefill, to report how
+much of the wall time the card spent running kernels.  Before phase 3 a
+one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs a CUDA card
 and the checkout's ``src/`` beside it.
@@ -1548,6 +1560,346 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     return counts
 
 
+WORLD_DAYS, WORLD_PER_DAY = 14.0, 200     # benchmarks/common.py::build_world
+FIG5_RUNS = 4               # examples/transfer_tuning.py's transfers a model
+FIG6_SMOKE_SEEDS = range(3)  # benchmarks/fig6_accuracy.py's smoke seeds
+FIG6_SEEDS = range(9)       # and its full ones
+ANNOT_MSE_RTOL = 1e-3       # ANN+OT's train_mse, card against the CPU
+
+
+def _annot_init(dtype):
+    """ANN+OT's initial parameters, drawn once on the CPU: the card's and
+    the CPU's generators give different streams from one seed, so both runs
+    take these."""
+    import torch
+    from repro_torch.core.baselines.ann_ot import init_mlp
+    return init_mlp(torch.Generator().manual_seed(0), dtype=dtype)
+
+
+def _fig6_transfer(s: int):
+    """``benchmarks/fig6_accuracy.py``'s transfer ``s`` on xsede."""
+    from repro_torch.netsim import make_dataset, make_testbed
+    env = make_testbed("xsede", seed=200 + s)
+    env.clock_s = 5 * 3600 + s * 997
+    return env, make_dataset(["small", "medium", "large"][s % 3], 60 + s)
+
+
+def _forecast_accuracy(achieved: float, predicted: float) -> float:
+    """Eq. 25, as ``fig6_accuracy.py`` scores HARP and ANN+OT."""
+    pred = max(predicted, 1e-6)
+    return max(0.0, 100 * (1 - abs(achieved - pred) / max(pred, achieved)))
+
+
+def phase_baselines(device) -> dict[str, int]:
+    """The paper's comparison on xsede, as ``benchmarks/common.py::
+    build_world("xsede", seed=0)`` sets it up (2,800 log entries, the ASM
+    tuner fitted on the card, the six baselines, ANN+OT trained on the
+    card): a miniature Fig. 5 (mean % of optimal steady throughput over
+    ``examples/transfer_tuning.py``'s four medium transfers) and Fig. 6
+    (prediction accuracy at 1 and 3 samples over ``fig6_accuracy.py``'s
+    smoke seeds).  Gates: every report finite and positive and every
+    sample within ``ParamBounds``; ANN+OT's training error on the card
+    within 1e-3 relative of the CPU's from the same initial parameters;
+    in float64, the same (cc, p, pp) on the card and the CPU on Fig. 6's
+    nine transfers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import TransferTuner, TunerConfig
+    from repro_torch.core.baselines import (
+        ALL_BASELINES, ANNOT, HARP, run_transfer,
+    )
+    from repro_torch.netsim import (
+        ParamBounds, generate_history, make_dataset, make_testbed,
+    )
+
+    tag = "[baselines]"
+    bounds = ParamBounds()
+    hist = generate_history(make_testbed("xsede", seed=3), days=WORLD_DAYS,
+                            transfers_per_day=WORLD_PER_DAY, seed=0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    asm = TransferTuner(TunerConfig(seed=0, device=device)).fit(hist)
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t0
+
+    # ANN+OT on the card, and on the CPU from the same initial parameters
+    init = _annot_init(torch.float32)
+    t0 = time.perf_counter()
+    annot = ANNOT(hist, device=device, params=init)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ANNOT(hist, device="cpu", params=init)
+    host_s = time.perf_counter() - t0
+    busy = device_busy(lambda: ANNOT(hist, device=device, params=init))
+    rel = abs(annot.train_mse - host.train_mse) / host.train_mse
+    print(f"{tag} {len(hist)} xsede entries; ASM fit on the card in "
+          f"{asm_s:.3f} s; ANN+OT (300 Adam epochs, float32) trained on the "
+          f"card in {card_s:.3f} s (train_mse {annot.train_mse:.7f}), on the "
+          f"CPU in {host_s:.3f} s (train_mse {host.train_mse:.7f}, relative "
+          f"gap {rel:.2e}, gate {ANNOT_MSE_RTOL:g}); profiled card training: "
+          f"{busy_text(*busy)}")
+    check(rel <= ANNOT_MSE_RTOL,
+          f"ANN+OT's train_mse on the card {annot.train_mse} is {rel:.2e} "
+          f"(relative) from the CPU's {host.train_mse}")
+
+    tuners = {name: annot if name == "ANN+OT"
+              else cls(hist) if name in ("SP", "HARP") else cls()
+              for name, cls in ALL_BASELINES.items()}
+
+    def held(rep, label: str):
+        check(all(np.isfinite(v) and v > 0 for v in
+                  (rep.steady_mbps, rep.achieved_mbps, rep.total_s)),
+              f"{label}: report not finite and positive ({rep.steady_mbps}, "
+              f"{rep.achieved_mbps}, {rep.total_s})")
+        for r in rep.samples:
+            check(1 <= r.params.cc <= bounds.max_cc
+                  and 1 <= r.params.p <= bounds.max_p
+                  and 1 <= r.params.pp <= bounds.max_pp,
+                  f"{label}: sample {r.params} outside {bounds}")
+        return rep
+
+    pct = {}
+    for name in list(tuners) + ["ASM"]:
+        accs = []
+        for r in range(FIG5_RUNS):
+            env = make_testbed("xsede", seed=100 + r)
+            env.clock_s = 4 * 3600 + 907 * r
+            ds = make_dataset("medium", 30 + r)
+            rep = held(asm.transfer(env, ds) if name == "ASM"
+                       else run_transfer(tuners[name], env, ds),
+                       f"{name} transfer {r}")
+            _, opt = env.optimal(bounds, ds.avg_file_mb, ds.n_files)
+            accs.append(100 * min(rep.steady_mbps, opt) / opt)
+        pct[name] = statistics.mean(accs)
+    print(f"{tag} Fig. 5 miniature, % of optimal steady throughput over "
+          f"{FIG5_RUNS} medium transfers: "
+          + ", ".join(f"{n} {v:.1f}" for n, v in pct.items()))
+
+    acc6 = {"ASM": {}, "HARP": {}, "ANN+OT": {}}
+    for n in (1, 3):
+        tuner = TransferTuner(TunerConfig(seed=0, max_samples=n,
+                                          device=device)).fit(hist)
+        asm_acc, harp_acc = [], []
+        for s in FIG6_SMOKE_SEEDS:
+            rep = held(tuner.transfer(*_fig6_transfer(s)), f"ASM fig6 {s}")
+            asm_acc.append(rep.prediction_accuracy)
+            harp = HARP(hist, n_probes=max(n, 1))
+            rep = held(run_transfer(harp, *_fig6_transfer(s)),
+                       f"HARP fig6 {s}")
+            harp_acc.append(_forecast_accuracy(rep.steady_mbps,
+                                               harp.predicted_mbps))
+        acc6["ASM"][n] = statistics.mean(asm_acc)
+        acc6["HARP"][n] = statistics.mean(harp_acc)
+    ann_acc = []
+    for s in FIG6_SMOKE_SEEDS:
+        rep = held(run_transfer(annot, *_fig6_transfer(s)), f"ANN+OT fig6 {s}")
+        ann_acc.append(_forecast_accuracy(rep.steady_mbps, annot._best_pred))
+    acc6["ANN+OT"] = dict.fromkeys((1, 3), statistics.mean(ann_acc))
+    print(f"{tag} Fig. 6 prediction accuracy at 1 / 3 samples over seeds "
+          f"{list(FIG6_SMOKE_SEEDS)}: "
+          + ", ".join(f"{m} {c[1]:.1f} / {c[3]:.1f}" for m, c in acc6.items()))
+    ahead = pct["ASM"] > max(pct["GO"], pct["SP"])
+    print(f"{tag} the paper's ordering: ASM {pct['ASM']:.1f}% against GO "
+          f"{pct['GO']:.1f}% and SP {pct['SP']:.1f}%: ASM "
+          f"{'ahead of both' if ahead else 'NOT ahead of both'} (reported, "
+          f"not gated: the port's ANN+OT starts from torch's draws)")
+
+    # float64: the card and the CPU choose alike on every Fig. 6 transfer
+    init64 = _annot_init(torch.float64)
+    card64 = ANNOT(hist, device=device, params=init64)
+    host64 = ANNOT(hist, device="cpu", params=init64)
+    for s in FIG6_SEEDS:
+        got = card64.start(*_fig6_transfer(s)).as_tuple()
+        want = host64.start(*_fig6_transfer(s)).as_tuple()
+        check(got == want, f"float64 ANN+OT chose {got} on the card and "
+              f"{want} on the CPU at Fig. 6 transfer {s}")
+    print(f"{tag} float64 ANN+OT: train_mse card {card64.train_mse:.15f}, "
+          f"cpu {host64.train_mse:.15f}; the same (cc, p, pp) on all "
+          f"{len(FIG6_SEEDS)} Fig. 6 transfers")
+    counts = launch_counts()
+    print(f"{tag} launches {counts}")
+    return counts
+
+
+CKPT_FREE_BYTES = 8e9        # two saves of rwkv6-1.6b's 3.16 GB, and probes
+PROBE_LEAVES, PROBE_SIZE = 16, 250_000   # examples/transfer_tuning.py's tree
+PROBE_SAVES = 12             # and its probe count
+PIPE_BATCHES = 8
+
+
+def _filesystem(path: str) -> str:
+    """The type of the filesystem ``path`` lies on (from /proc/mounts), so
+    a save's rate can be read as a disk's or as memory's (tmpfs)."""
+    try:
+        with open("/proc/mounts") as fh:
+            mounts = [line.split()[1:3] for line in fh]
+    except OSError:
+        return "a filesystem of unknown type"
+    point, kind = max(((m, k) for m, k in mounts
+                       if path == m or path.startswith(m.rstrip("/") + "/")),
+                      key=lambda mk: len(mk[0]), default=("?", "unknown"))
+    return f"{kind} mounted at {point}"
+
+
+def phase_checkpoint(device) -> dict[str, int]:
+    """The paper's knobs on real disk with a model on the card: a
+    ``CheckpointTuner`` seeded with real probe saves of a tree on the card,
+    fitted on the card; rwkv6-1.6b's full bf16 weights saved under its
+    recommendation and under (1, 1, 1), the newest restored to the card;
+    gates: every leaf ``torch.equal`` in dtype and shape, and one prefill
+    (batch 1, 2048 tokens) through a model filled from the restored tree
+    gives the original's logits exactly, through exactly 24 ``rwkv6``
+    launches.  Then ``TokenPipeline`` at rwkv6's serve shape fed to the
+    card; gate: the card's copies of the one-worker batches equal the
+    batches the CPU makes for the same indices."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import (
+        CkptParams, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.checkpoint.tuning import CheckpointTuner
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PipelineParams, TokenPipeline
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import paths_from_tree
+
+    tag = "[checkpoint]"
+    cfg = get_config("rwkv6-1.6b", "full")
+    model = build_model(cfg, device, seed=0)
+    tree = dict(model.named_parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in tree.values())
+    g = torch.Generator(device=device).manual_seed(0)
+    probe = {f"l{i}": torch.randn(PROBE_SIZE, generator=g, device=device)
+             for i in range(PROBE_LEAVES)}
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        print(f"{tag} {cfg.name}: {len(tree)} leaves, {n_bytes / 1e9:.3f} GB "
+              f"in {str(cfg.dtype)[6:]} on the card; {free / 1e9:.1f} GB free "
+              f"under the temporary directory, on {_filesystem(d)}")
+        check(free >= CKPT_FREE_BYTES,
+              f"only {free / 1e9:.1f} GB free under {d}: two checkpoints of "
+              f"{n_bytes / 1e9:.2f} GB need {CKPT_FREE_BYTES / 1e9:.0f} GB")
+        log = os.path.join(d, "transfers.jsonl")
+        tuner = CheckpointTuner(log, device=device)
+        t0 = time.perf_counter()
+        probes = tuner.seed_history(probe, os.path.join(d, "probe"),
+                                    n_probes=PROBE_SAVES)
+        seed_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(d, "probe"))
+        t0 = time.perf_counter()
+        rec = tuner.fit().recommend()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rates = sorted(s["throughput_mbps"] for s in probes)
+        print(f"{tag} {PROBE_SAVES} probe saves of {PROBE_LEAVES} x "
+              f"{PROBE_SIZE} f32 on the card in {seed_s:.3f} s ("
+              f"{rates[0]:.0f}-{rates[-1]:.0f} Mbit/s); tuner fit on the card "
+              f"in {fit_s:.3f} s; recommended (cc, p, pp) = "
+              f"({rec.cc}, {rec.p}, {rec.pp})")
+        rec_t = (rec.cc, rec.p, rec.pp)
+
+        # the device-to-host half of a save alone: every leaf copied to
+        # pageable host memory one at a time, as the writer copies them
+        t0 = time.perf_counter()
+        host = [p.detach().cpu() for p in tree.values()]
+        d2h_s = time.perf_counter() - t0
+        del host
+        ck = os.path.join(d, "model")
+        saves = {}
+        for step, prm in ((1, rec), (2, CkptParams(1, 1, 1))):
+            torch.cuda.synchronize()
+            saves[(prm.cc, prm.p, prm.pp)] = save_checkpoint(ck, step, tree,
+                                                             params=prm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = restore_checkpoint(ck, params=rec, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    print(f"{tag} device-to-host copies of every leaf alone: {d2h_s:.3f} s, "
+          f"{n_bytes / d2h_s / 1e9:.2f} GB/s")
+    for prm, s in saves.items():
+        print(f"{tag} save of {s['bytes'] / 1e9:.3f} GB at (cc, p, pp) = "
+              f"{prm}: {s['elapsed_s']:.3f} s, {s['throughput_mbps']:.0f} "
+              f"Mbit/s")
+    print(f"{tag} restore of the newest step to the card at (cc, p, pp) = "
+          f"{rec_t}: "
+          f"{restore_s:.3f} s, {n_bytes * 8e-6 / restore_s:.0f} Mbit/s")
+
+    flat = paths_from_tree(back)
+    check(set(flat) == set(tree), "the restored tree's leaves are not the "
+          "model's")
+    for name, p in tree.items():
+        got = flat[name]
+        check(got.device == p.device and got.dtype == p.dtype
+              and got.shape == p.shape and torch.equal(got, p),
+              f"restored {name} differs from the saved leaf")
+    twin = build_model(cfg, device, seed=None)
+    with torch.no_grad():
+        for name, p in twin.named_parameters():
+            p.copy_(flat[name])
+    del back, flat
+    prompt = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                          device=device)[:1]
+    want, _ = model.prefill(prompt, model.init_cache(1, SERVE_PROMPT + 1))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got, _ = twin.prefill(prompt, twin.init_cache(1, SERVE_PROMPT + 1))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(_lm_counts(counts) == lm_launches(cfg, 1, 0),
+          f"the restored model's prefill launched {_lm_counts(counts)}, not "
+          f"{lm_launches(cfg, 1, 0)}")
+    check(torch.equal(got, want), "the restored model's prefill logits "
+          "differ from the original's")
+    print(f"{tag} every leaf restored equal in dtype and shape; a prefill of "
+          f"1 x {SERVE_PROMPT} tokens through the restored model: logits "
+          f"equal to the original's, launches {counts}")
+    del model, twin, tree, probe
+    torch.cuda.empty_cache()
+
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, global_batch=SERVE_BATCH,
+                      seq_len=SERVE_PROMPT, seed=0)
+    for prm in (PipelineParams(1, 1, 1), PipelineParams(4, 2, 4)):
+        pipe = TokenPipeline(dcfg, prm)
+        try:
+            t0 = time.perf_counter()
+            copies = [torch.from_numpy(pipe.next_batch()["tokens"]).to(device)
+                      for _ in range(PIPE_BATCHES)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe.close()
+        n_tok = PIPE_BATCHES * SERVE_BATCH * SERVE_PROMPT
+        print(f"{tag} TokenPipeline (cc, p, pp) = ({prm.cc}, {prm.p}, "
+              f"{prm.pp}), vocab {cfg.vocab_size}, {SERVE_BATCH} x "
+              f"{SERVE_PROMPT}: {PIPE_BATCHES} batches to the card in "
+              f"{wall:.4f} s, {n_tok / wall:.0f} tokens/s")
+        if prm.cc == 1:
+            for i, c in enumerate(copies):
+                cpu = torch.from_numpy(pipe._gen_shard(i, 0, SERVE_BATCH))
+                check(torch.equal(c.cpu(), cpu),
+                      f"one-worker batch {i} on the card differs from the "
+                      f"CPU's batch {i}")
+    return counts
+
+
+def launch_floor(device) -> float:
+    """Device ms of a one-element ``add_``, replayed as ``cuda_ms`` replays
+    the kernels: the least a launch costs, whatever it computes."""
+    import torch
+    one = torch.zeros(1, device=device)
+    ms, call_ms = cuda_ms(lambda: one.add_(1.0))
+    print(f"[kernels] launch floor: a one-element add_ takes {ms:.4f} ms a "
+          f"launch (graph replay), {call_ms:.4f} ms an eager call")
+    return ms
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     import torch
@@ -1576,9 +1928,11 @@ def main() -> int:
             phase_kernel_transfer_select(card_db),
             phase_kernel_flash_attention(device), phase_kernel_ssd_scan(device),
             phase_kernel_rwkv6(device)]
+    launch_floor(device)
     paths = [phase_offline(device), phase_tuner(device),
-             phase_fleet(device, card_db)]
+             phase_fleet(device, card_db), phase_baselines(device)]
     paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
+    paths.append(phase_checkpoint(device))
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         check(row["launches"] > 0, f"the main path never launched {row['name']}")

@@ -2,17 +2,115 @@
 
 Natural ("relaxed") cubic splines with zero second derivative at the
 boundaries, solved from the standard tridiagonal system, and the tensor-
-product extension to 3-D (spline over pp of bicubic (p, cc) slices) used for
-throughput-surface construction.  The numpy machinery of the JAX package,
-copied as it is: the offline fit and the online queries both run on the host
-in float64, and the additive refit's batched pp-direction solve goes through
-``kernels.ops.nat_spline_fit`` (see ``core.surfaces``).
+product extension to 2-D (bicubic over the (p, cc) grid) and 3-D (spline
+over pp of bicubic (p, cc) slices) used for throughput-surface construction.
+
+Two halves:
+
+- ``CubicSpline1D``, ``_fit_many``, ``_eval_packed`` and ``BicubicSpline``
+  are torch (fit = one small ``torch.linalg.solve``, evaluation =
+  ``torch.searchsorted`` + Horner) on an explicit device, in the dtype of
+  their inputs: float64 arrays give float64 tensors, float32 ones float32.
+  The JAX package registers its classes as pytrees so that ``jax.jit`` and
+  ``jax.vmap`` can trace them; PyTorch runs eagerly and nothing in the port
+  traces these classes, so they are plain frozen dataclasses, and the
+  reference's ``vmap`` over rows is batched tensor code.
+- The numpy machinery of the JAX package (``nat_spline_coeffs`` and on),
+  copied as it is: the offline fit and the online queries both run on the
+  host in float64, and the additive refit's batched pp-direction solve goes
+  through ``kernels.ops.nat_spline_fit`` (see ``core.surfaces``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _as_float(v, device, dtype=None) -> torch.Tensor:
+    """``v`` as a tensor on ``device``: in ``dtype`` if given, else in its
+    own floating dtype (float32 for integers)."""
+    t = torch.as_tensor(v, device=device)
+    if dtype is not None:
+        return t.to(dtype)
+    return t if t.is_floating_point() else t.to(torch.float32)
+
+
+def _nat_coeffs(x: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Natural-spline coefficients (R, N-1, 4) of the rows of Y (R, N) over
+    the knots x (N,), N >= 3: one (N, N) solve with R right-hand sides."""
+    n = x.shape[0]
+    h = torch.diff(x)                                 # (N-1,)
+    # Tridiagonal system for interior second derivatives M_1..M_{N-2};
+    # natural boundary: M_0 = M_{N-1} = 0  (Eq. 14).
+    A = torch.zeros((n, n), dtype=x.dtype, device=x.device)
+    A[0, 0] = A[n - 1, n - 1] = 1.0
+    idx = torch.arange(1, n - 1, device=x.device)
+    A[idx, idx - 1] = h[:-1]
+    A[idx, idx] = 2.0 * (h[:-1] + h[1:])
+    A[idx, idx + 1] = h[1:]
+    rhs = torch.zeros((n, Y.shape[0]), dtype=x.dtype, device=x.device)
+    rhs[1:-1] = (6.0 * ((Y[:, 2:] - Y[:, 1:-1]) / h[1:]
+                        - (Y[:, 1:-1] - Y[:, :-2]) / h[:-1])).T
+    M = torch.linalg.solve(A, rhs).T                  # second derivatives
+    a = Y[:, :-1]
+    b = (Y[:, 1:] - Y[:, :-1]) / h - h * (2.0 * M[:, :-1] + M[:, 1:]) / 6.0
+    c = M[:, :-1] / 2.0
+    d = (M[:, 1:] - M[:, :-1]) / (6.0 * h)
+    return torch.stack([a, b, c, d], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CubicSpline1D:
+    """Natural cubic spline through (x_i, y_i), x strictly increasing."""
+    x: torch.Tensor        # (N,)
+    coeffs: torch.Tensor   # (N-1, 4): a + b t + c t^2 + d t^3, t = xq - x_i
+
+    @classmethod
+    def fit(cls, x, y, *, device=None) -> "CubicSpline1D":
+        """``device``: None is the CUDA card (``device.resolve_device``)."""
+        x = _as_float(x, resolve_device(device))
+        y = _as_float(y, x.device, x.dtype)
+        n = x.shape[0]
+        zero = torch.zeros((1,), dtype=x.dtype, device=x.device)
+        if n == 1:
+            # Single knot: the natural spline degenerates to the constant y_0.
+            return cls(x, torch.stack([y[:1], zero, zero, zero], dim=-1))
+        if n == 2:
+            slope = (y[1] - y[0]) / (x[1] - x[0])
+            return cls(x, torch.stack([y[0], slope, zero[0], zero[0]])[None])
+        return cls(x, _nat_coeffs(x, y[None])[0])
+
+    def __call__(self, xq):
+        xq = _as_float(xq, self.x.device, self.x.dtype)
+        i = torch.clamp(torch.searchsorted(self.x, xq, right=True) - 1,
+                        0, self.coeffs.shape[0] - 1)
+        t = xq - self.x[i]
+        a, b, c, d = (self.coeffs[i, k] for k in range(4))
+        return a + t * (b + t * (c + t * d))
+
+
+def _fit_many(x: torch.Tensor, ys: torch.Tensor):
+    """Fit one spline per row of ``ys`` over shared knots ``x``, as the
+    reference's ``vmap`` of ``CubicSpline1D.fit``: (x, coeffs (R, N-1, 4))."""
+    n = x.shape[0]
+    if n >= 3:
+        return x, _nat_coeffs(x, ys)
+    return x, torch.stack([CubicSpline1D.fit(x, y, device=x.device).coeffs
+                           for y in ys])
+
+
+def _eval_packed(x, coeffs, xq):
+    """Evaluate row-packed spline coeffs (R, N-1, 4) at scalar xq -> (R,)."""
+    i = torch.clamp(torch.searchsorted(x, xq, right=True) - 1,
+                    0, coeffs.shape[1] - 1)
+    t = xq - x[i]
+    c = coeffs[:, i, :]                               # (R, 4)
+    return c[:, 0] + t * (c[:, 1] + t * (c[:, 2] + t * c[:, 3]))
+
 
 
 # --------------------------------------------------------------------------- #
@@ -74,6 +172,47 @@ def nat_spline_eval_rowwise(x: np.ndarray, coeffs: np.ndarray,
     t = xq - x[i]
     c = coeffs[np.arange(coeffs.shape[0]), i, :]        # (R, 4)
     return c[:, 0] + t * (c[:, 1] + t * (c[:, 2] + t * c[:, 3]))
+
+
+@dataclasses.dataclass(frozen=True)
+class BicubicSpline:
+    """Tensor-product natural bicubic spline over a rectangular grid.
+
+    Evaluation at (xq, yq): spline each grid row along y at yq, then spline
+    the resulting column along x at xq — the standard separable scheme, which
+    satisfies the Sec. 3.1.1 vertex-fit and C2-smoothness constraints.
+    """
+    gx: torch.Tensor           # (N,)
+    gy: torch.Tensor           # (M,)
+    row_coeffs: torch.Tensor   # (N, M-1, 4): per-row splines along y
+
+    @classmethod
+    def fit(cls, gx, gy, z, *, device=None) -> "BicubicSpline":
+        """``device``: None is the CUDA card (``device.resolve_device``)."""
+        z = _as_float(z, resolve_device(device))
+        gx = _as_float(gx, z.device, z.dtype)
+        gy = _as_float(gy, z.device, z.dtype)
+        if z.shape != (gx.shape[0], gy.shape[0]):
+            raise ValueError(f"grid values of shape {tuple(z.shape)} over "
+                             f"knots {gx.shape[0]} x {gy.shape[0]}")
+        if gy.shape[0] >= 2:
+            _, rc = _fit_many(gy, z)
+        else:
+            rc = torch.cat([z[:, :1, None],
+                            torch.zeros((z.shape[0], 1, 3), dtype=z.dtype,
+                                        device=z.device)], -1)
+        return cls(gx, gy, rc)
+
+    def __call__(self, xq, yq):
+        xq = _as_float(xq, self.gx.device, self.row_coeffs.dtype)
+        yq = _as_float(yq, self.gx.device, self.row_coeffs.dtype)
+        col = _eval_packed(self.gy, self.row_coeffs, yq)  # (N,)
+        if self.gx.shape[0] == 1:
+            return col[0]
+        if self.gx.shape[0] == 2:
+            w = (xq - self.gx[0]) / (self.gx[1] - self.gx[0])
+            return (1 - w) * col[0] + w * col[1]
+        return CubicSpline1D.fit(self.gx, col, device=col.device)(xq)
 
 
 @dataclasses.dataclass(frozen=True)

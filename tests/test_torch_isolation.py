@@ -12,10 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint.ckpt import restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint.tuning import CheckpointTuner
 from repro_torch.core import (
     FleetRequest, SurfaceStack, TransferTuner, TunerConfig, fit_clusters,
     offline_analysis, offline_db_from_state, run_fleet,
 )
+from repro_torch.core.baselines import ALL_BASELINES, ANNOT
+from repro_torch.core.spline import BicubicSpline, CubicSpline1D
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.configs import get_config
@@ -31,7 +36,7 @@ from repro_torch.netsim import ParamBounds, make_dataset
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 def _port_files():
@@ -63,6 +68,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
@@ -76,7 +82,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 58
+    assert int(out.stdout.strip().splitlines()[-1]) >= 74
 
 
 # ------------------------------------------------------------------ #
@@ -116,6 +122,41 @@ def test_entry_points_default_to_the_card(no_cuda):
         offline_db_from_state({})
     # asking for the CPU by name runs
     assert fit_clusters(X, m_range=range(2, 4), device="cpu").m in (2, 3)
+
+
+def test_baseline_spline_and_checkpoint_entry_points_default_to_the_card(
+        no_cuda, tmp_path):
+    """ANN+OT trains, the spline classes fit and a checkpoint restores on
+    the card unless the CPU is asked for by name; saving takes tensors
+    wherever they are, and the other baselines and the pipeline are numpy."""
+    from repro_torch.netsim import generate_history, make_testbed
+    hist = generate_history(make_testbed("xsede", seed=3), days=1,
+                            transfers_per_day=40, seed=0)
+    assert list(ALL_BASELINES)[4] == "ANN+OT"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ANNOT(hist, epochs=1)
+    assert ANNOT(hist, epochs=1, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        CubicSpline1D.fit([1.0, 2.0, 3.0], [1.0, 0.0, 1.0])
+    with pytest.raises(RuntimeError):
+        BicubicSpline.fit([1.0, 2.0], [1.0, 2.0], np.eye(2))
+    assert CubicSpline1D.fit([1.0, 2.0, 3.0], [1.0, 0.0, 1.0],
+                             device="cpu").x.device.type == "cpu"
+    d = str(tmp_path / "ckpt")
+    save_checkpoint(d, 1, {"w": torch.ones(4)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(d)
+    assert restore_checkpoint(d, device="cpu")["w"].device.type == "cpu"
+    log = str(tmp_path / "log.jsonl")
+    CheckpointTuner(log).seed_history({"w": torch.ones(4)}, d, n_probes=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointTuner(log).fit()
+    assert CheckpointTuner(log, device="cpu").fit().recommend().cc >= 1
+    pipe = TokenPipeline(DataConfig(vocab_size=10, global_batch=2, seq_len=4))
+    try:
+        assert isinstance(pipe.next_batch()["tokens"], np.ndarray)
+    finally:
+        pipe.close()
 
 
 def test_fleet_entry_points_default_to_the_card(no_cuda, tmp_path):
