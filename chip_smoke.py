@@ -43,18 +43,27 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
 8. serve   -- rwkv6-1.6b at full width and depth (24 RWKV6 layers,
               d_model 2048, 32 heads of 64) the same way; one prefill and
               every decode step each launch exactly 24 ``rwkv6``;
-9. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
+9. serve   -- minitron-4b, dense GQA, at full width and depth (32 layers,
+              d_model 3072, 24 query heads over 8 kv heads of 128, vocab
+              256,000) the same way; one prefill launches exactly 32
+              ``flash_attention``, decode none;
+10. serve  -- mixtral-8x22b, mixture of experts, at full width (d_model
+              6144, 48 query heads over 8 kv heads of 128, 8 experts of
+              16,384, top 2) and 8 of its 56 layers (the whole model is 281
+              GB in bf16; its float32 check runs 2 layers) the same way; one
+              prefill launches exactly 8 ``flash_attention``, decode none;
+11. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
               tree on the card; rwkv6-1.6b's full weights saved to disk under
               its recommendation and under (1, 1, 1), restored to the card
               bit for bit, and one prefill through the restored model (24
               ``rwkv6``, logits equal to the original's); ``TokenPipeline``
               at the serve shape fed to the card.
 
-Phases 3 to 9 are the main path: every kernel's launch count is set to
-0 just before each and read just after (phase 9: just around the restored
+Phases 3 to 11 are the main path: every kernel's launch count is set to
+0 just before each and read just after (phase 11: just around the restored
 model's prefill), and a kernel that the path did not launch fails the run.
 Phases 3 to 6 end with one more, profiled run of a fit, a fleet or a
-training, and phases 7-8 profile decode steps and a prefill, to report how
+training, and phases 7-10 profile decode steps and a prefill, to report how
 much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary, the card's name and power
@@ -88,9 +97,15 @@ TESTBED_NAMES = ("xsede", "didclab", "didclab-xsede")
 FLEET_N = 256               # fleet_scale's largest admission-controller fleet
 PARITY_N = 8                # its engine-parity and knowledge-service fleets
 SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
-SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b")   # the port's LM families, full size
+# the port's LM families at full width: hybrid, RWKV6, dense GQA and MoE
+SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b", "minitron-4b", "mixtral-8x22b")
 SERVE_BATCH, SERVE_PROMPT = 8, 2048
 SERVE_STEPS = 64            # greedy decode steps after the prefill
+# depth cuts, where the whole model does not fit one 80 GB card: mixtral's
+# 56 layers are 281 GB in bf16, 8 of them 41 GB; its float32 check, twice
+# the bytes a layer, takes 2
+SERVE_LAYERS = {"mixtral-8x22b": 8}
+F32_LAYERS = {"mixtral-8x22b": 2}
 
 
 class SmokeFailure(RuntimeError):
@@ -552,9 +567,10 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
 def phase_kernel_flash_attention(device) -> dict:
     """At the serve path's shape (zamba2-7b prefill: causal, D = 112) and at
     a GQA + window + q_offset case with ragged Sq and Sk, in bf16 and f32;
-    in bf16 also at the dense families' shape (minitron-4b's 24 heads over
-    8 kv heads of 128, causal), reported and not gated on time.  The row
-    reported is the serve shape in bf16, the path's dtype."""
+    in bf16 also at the prefill shapes of the dense and MoE serve phases
+    (minitron-4b's 24 heads over 8 kv heads of 128, mixtral-8x22b's 48 over
+    8, causal), reported and not gated on time.  The row reported is the
+    zamba2 serve shape in bf16, the path's dtype."""
     import torch
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
     row = None
@@ -565,9 +581,11 @@ def phase_kernel_flash_attention(device) -> dict:
         row = row or r
         _attention_case(device, dtype, (2, 1000, 1500, 24, 8, 128), True,
                         256, 500, "GQA+window+offset, ragged", library=False)
-    _attention_case(device, torch.bfloat16,
-                    (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128),
-                    True, 0, 0, "dense GQA shape", library=True)
+    for heads, label in ((24, "dense GQA shape (minitron-4b)"),
+                         (48, "MoE GQA shape (mixtral-8x22b)")):
+        _attention_case(device, torch.bfloat16,
+                        (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, heads, 8,
+                         128), True, 0, 0, label, library=True)
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1299,10 +1317,14 @@ def lm_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     ``n_decode`` decode steps of ``cfg``'s model make: an RWKV6 layer runs
     ``rwkv6`` in both; a hybrid runs ``ssd_scan`` in each Mamba2 layer's
     prefill and ``flash_attention`` in each shared block's, and neither in
-    decode."""
+    decode; a dense or MoE layer runs ``flash_attention`` in its prefill and
+    none in decode (decode attention is plain torch, as in the
+    reference)."""
     n = dict.fromkeys(LM_KERNELS, 0)
     if cfg.rwkv:
         n["rwkv6"] = cfg.n_layers * (n_prefill + n_decode)
+    elif cfg.family not in ("ssm", "hybrid"):
+        n["flash_attention"] = cfg.n_layers * n_prefill
     else:
         n["ssd_scan"] = cfg.n_layers * n_prefill
         n["flash_attention"] = cfg.n_layers // cfg.hybrid_attn_every * n_prefill
@@ -1392,21 +1414,22 @@ def _check_on_activations(model, prompts, label: str) -> None:
 
 
 def phase_serve(device, arch: str) -> dict[str, int]:
-    """``arch`` at full width and depth on the card: 8 prompts of 2048
-    tokens, prefill, then 64 greedy decode steps through the kernels, timed
-    and counted (exactly ``lm_launches``).  Then three checks against the
-    plain route (``use_kernel=False``) on the same weights and prompts:
+    """``arch`` at full width, and at full depth unless ``SERVE_LAYERS``
+    cuts it, on the card: 8 prompts of 2048 tokens, prefill, then 64 greedy
+    decode steps through the kernels, timed and counted (exactly
+    ``lm_launches``).  Then three checks against the plain route
+    (``use_kernel=False``) on the same weights and prompts:
 
     - every kernel launch of one bf16 prefill and one decode step against
       its plain version on the same activations (gated, the kernels' own
       tolerances);
     - the bf16 logits of the two routes, teacher forced on the kernel run's
       tokens (reported, not gated: see the comment there);
-    - the same model in float32: every kernel launch of a prefill and a
-      decode step against its plain version (gated), and prefill and 8
-      teacher-forced decode
-      steps through both routes, against a bound made of the growth over
-      depth measured in the same run (gated).
+    - the same model in float32 (at ``F32_LAYERS`` where given): every
+      kernel launch of a prefill and a decode step against its plain
+      version (gated), and prefill and 8 teacher-forced decode steps
+      through both routes, against a bound made of the growth over depth
+      measured in the same run (gated).
     """
     import dataclasses
 
@@ -1415,7 +1438,11 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import build_model
 
-    cfg = get_config(arch, "full")
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS.get(
+        arch, full.n_layers))
+    cut = (f" (cut: {cfg.n_layers} of its {full.n_layers} layers, full "
+           f"width)" if cfg.n_layers < full.n_layers else "")
     tag = f"[serve {cfg.name}]"
     t0 = time.perf_counter()
     model = build_model(cfg, device, seed=0)
@@ -1447,7 +1474,7 @@ def phase_serve(device, arch: str) -> dict[str, int]:
           and run.tokens.shape == (SERVE_BATCH, n_tokens),
           "the serve run's logits are not finite or not of the served shape")
     p50 = run.decode_p50_ms()
-    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"{tag} {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters in {str(cfg.dtype)[6:]}, seeded "
           f"on the card in {init_s:.3f} s; warm-up serve (3 tokens) "
           f"{warm_s:.3f} s")
@@ -1517,8 +1544,13 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     #    gap is bounded by that growth of a 1e-6 difference, times
     #    sqrt(launches) for the places such differences enter: the prefill's
     #    and the decode steps' launches (zamba2-7b: 94, all in the prefill;
-    #    rwkv6-1.6b: 24 in each of the 9 calls).
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    #    rwkv6-1.6b: 24 in each of the 9 calls; minitron-4b: 32 and
+    #    mixtral-8x22b's 2 float32 layers: 2, all in the prefill).
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=F32_LAYERS
+                                .get(arch, cfg.n_layers))
+    if cfg32.n_layers < cfg.n_layers:
+        print(f"{tag} the float32 check runs {cfg32.n_layers} of the "
+              f"{cfg.n_layers} layers (float32 doubles a layer's bytes)")
     model = build_model(cfg32, device, seed=0)
     _check_on_activations(model, prompts, "float32")
     steps32 = 8
@@ -1549,7 +1581,7 @@ def phase_serve(device, arch: str) -> dict[str, int]:
           f"max |logit diff| prefill {errs[0]:.3e}, decode {max(errs[1:]):.3e}, "
           f"logit scale {scale:.4f} ({100 * max(errs) / scale:.2f}%); greedy "
           f"agreement {100 * agree:.2f}%")
-    n_launch = sum(lm_launches(cfg, 1, steps32).values())
+    n_launch = sum(lm_launches(cfg32, 1, steps32).values())
     tol = n_launch ** 0.5 * growth * 1e-6 * scale
     check(max(errs) <= tol,
           f"in float32 the kernel route's logits differ from the plain "

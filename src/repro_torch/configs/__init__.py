@@ -10,10 +10,18 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["zamba2_7b", "rwkv6_1_6b"]
+ARCH_IDS = [
+    "zamba2_7b", "rwkv6_1_6b", "minitron_4b", "internlm2_20b",
+    "qwen2_5_32b", "llama3_405b", "mixtral_8x22b",
+]
 
 # canonical dashed names from the assignment table
-ALIASES = {"zamba2-7b": "zamba2_7b", "rwkv6-1.6b": "rwkv6_1_6b"}
+ALIASES = {
+    "zamba2-7b": "zamba2_7b", "rwkv6-1.6b": "rwkv6_1_6b",
+    "minitron-4b": "minitron_4b", "internlm2-20b": "internlm2_20b",
+    "qwen2.5-32b": "qwen2_5_32b", "llama3-405b": "llama3_405b",
+    "mixtral-8x22b": "mixtral_8x22b",
+}
 
 
 def get_config(arch: str, variant: str = "full"):

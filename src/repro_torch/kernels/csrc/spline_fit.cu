@@ -17,18 +17,26 @@
 // At large R it is bandwidth-bound: the output is four times the input.
 //
 // What the design does about it: one launch for the whole batch, one thread
-// per row.  The knot-only Thomas factors (h, cp and 1/denom) are computed once
-// per block into shared memory; each thread then reads its row once, runs the
-// forward and backward sweeps in registers (N is a template parameter, so
-// every loop is unrolled and no array leaves registers), and writes its
-// coefficients once as float4 stores.
+// per row, and one dependent trip to memory.  Each thread issues the loads of
+// its row and of the N knots together, then computes the knot-only Thomas
+// factors (h, cp and 1/denom) itself in registers while nothing else waits on
+// them: no shared memory, no barrier, so no thread idles while one thread
+// runs the N - 2 dependent divides before the rows are even requested.  It
+// then runs the forward and backward sweeps in registers (N is a template
+// parameter, so every loop is unrolled and no array leaves registers), and
+// writes its coefficients once as float4 stores.  Every value is computed by
+// the same expression, in the same order, as when one thread of the block
+// computed the factors for all, so the outputs are the same.  A thread's
+// chain of IEEE divides, not bytes, is what is left above the launch, so the
+// blocks are small (64 threads): the rows spread over more SMs, and fewer
+// warps share each SM's divide units.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
 constexpr int kMaxN = 16;
 
 template <int N>
@@ -36,12 +44,21 @@ __global__ void spline_fit_kernel(const float* __restrict__ x,
                                   const float* __restrict__ Y, int R,
                                   float4* __restrict__ out) {
   constexpr int NM = N > 2 ? N - 2 : 1;  // interior unknowns M_1..M_{N-2}
-  __shared__ float sh[N > 1 ? N - 1 : 1];
-  __shared__ float scp[NM];
-  __shared__ float sinv[NM];
-  if (N > 2 && threadIdx.x == 0) {
-    for (int i = 0; i < N - 1; ++i) sh[i] = x[i + 1] - x[i];
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  // both loads first: the row's and the knots' round trips overlap
+  float y[N], xk[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) y[i] = Y[r * N + i];
+#pragma unroll
+  for (int i = 0; i < N; ++i) xk[i] = x[i];
+
+  float sh[N > 1 ? N - 1 : 1], scp[NM], sinv[NM];
+  if constexpr (N > 2) {
+#pragma unroll
+    for (int i = 0; i < N - 1; ++i) sh[i] = xk[i + 1] - xk[i];
     float cp = 0.f;
+#pragma unroll
     for (int j = 0; j < N - 2; ++j) {
       const float diag = 2.f * (sh[j] + sh[j + 1]);
       const float denom = j == 0 ? diag : diag - sh[j] * cp;
@@ -50,18 +67,11 @@ __global__ void spline_fit_kernel(const float* __restrict__ x,
       sinv[j] = 1.f / denom;
     }
   }
-  __syncthreads();
-
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  float y[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) y[i] = Y[r * N + i];
 
   if constexpr (N == 1) {
     out[r] = make_float4(y[0], 0.f, 0.f, 0.f);
   } else if constexpr (N == 2) {
-    out[r] = make_float4(y[0], (y[1] - y[0]) / (x[1] - x[0]), 0.f, 0.f);
+    out[r] = make_float4(y[0], (y[1] - y[0]) / (xk[1] - xk[0]), 0.f, 0.f);
   } else {
     // forward sweep: dp_j = (rhs_j - h_j dp_{j-1}) / denom_j
     float dp[N - 2];

@@ -78,8 +78,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0
                     ) -> torch.Tensor:
     """GQA scaled-dot-product attention. q: (B, Sq, Hq, D); k/v:
-    (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype — the shared attention
-    block's prefill (``models.attention``)."""
+    (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype — the prefill of every
+    GQA attention layer: the hybrid's shared block and each layer of the
+    dense and MoE stacks (``models.attention``)."""
     if q.is_cuda:
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -4,8 +4,9 @@
 The additive refit refits every touched (cluster, load-bin) surface at once,
 which reduces to fitting R spline rows over one shared knot vector (see
 ``core.surfaces.fit_surfaces_batched``).  The CUDA kernel runs one thread per
-row with the knot-only Thomas factors in shared memory (see the note at the
-top of the source), and handles the degenerate N = 1 and N = 2 itself.  Its
+row, each computing the knot-only Thomas factors in registers while its row
+loads (see the note at the top of the source), and handles the degenerate
+N = 1 and N = 2 itself.  Its
 plain-torch version is ``kernels.ref.nat_spline_fit_ref``.
 """
 from __future__ import annotations

@@ -7,6 +7,14 @@
         --variant full --batch 8 --prompt-len 2048 --tokens 65
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --variant full --batch 8 --prompt-len 2048 --tokens 65
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
+        --variant full --batch 8 --prompt-len 2048 --tokens 65
+
+``--arch`` takes every registered id (``repro_torch.configs.all_archs``):
+the hybrid, RWKV6, dense and MoE families.  There is no depth option, as
+the reference's launcher has none: a full model that does not fit one card
+(mixtral-8x22b, llama3-405b) is served cut in depth through the library,
+as ``chip_smoke.py`` does with ``dataclasses.replace(cfg, n_layers=8)``.
 
 Weights and prompts come from seeded ``torch.Generator``s on the device.
 The run prints the reference's line (prefill ms, decode p50 ms, tok/s) and

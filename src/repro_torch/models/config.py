@@ -1,6 +1,7 @@
 """Model configuration schema, the field set of the JAX package's
-``ModelConfig``.  The port runs the ``hybrid`` (and plain ``ssm``) family
-and RWKV6 (``rwkv``); the other families' fields are kept so a configuration reads the same in
+``ModelConfig``.  The port runs the ``hybrid`` (and plain ``ssm``) family,
+RWKV6 (``rwkv``) and the ``dense`` and ``moe`` families with GQA attention;
+the other families' fields are kept so a configuration reads the same in
 both packages."""
 from __future__ import annotations
 

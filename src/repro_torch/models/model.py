@@ -1,13 +1,16 @@
 """Model assembly for the hybrid family (Zamba2: a Mamba2 stack with one
 weight-shared attention(+MLP) block applied after every k-th layer), the
-plain Mamba2 stack and the RWKV6 stack (``cfg.rwkv``), inference only:
-``forward``, ``prefill`` and ``decode`` as in ``repro.models.model.Model``.
+plain Mamba2 stack, the RWKV6 stack (``cfg.rwkv``) and the dense and MoE
+families (a stack of GQA attention + SwiGLU or mixture-of-experts layers),
+inference only: ``forward``, ``prefill`` and ``decode`` as in
+``repro.models.model.Model``.
 
 The layers are ``nn.Module``s run in a Python loop (the reference scans a
 stacked tree); parameters keep the reference's names, so
 ``params.load_reference_params`` carries a JAX parameter tree over.  The
 decode cache keeps the reference's stacked layout, and ``prefill`` and
-``decode`` update it in place and return it.  Other families raise and wait
+``decode`` update it in place and return it.  MLA attention, DeepSeek's
+``first_k_dense`` stack, audio codebooks and the vision stub raise and wait
 in ROADMAP.md.
 """
 from __future__ import annotations
@@ -46,18 +49,24 @@ class RwkvLayer(nn.Module):
 
 
 class DenseLayer(nn.Module):
-    """Pre-norm attention + SwiGLU MLP (the hybrid's shared block)."""
+    """Pre-norm attention + SwiGLU MLP (``ffn``) or mixture of experts
+    (``moe``): a layer of the dense and MoE stacks, and the hybrid's shared
+    block."""
 
-    def __init__(self, cfg: ModelConfig, ctx: InitCtx):
+    def __init__(self, cfg: ModelConfig, ctx: InitCtx, use_moe: bool = False):
         super().__init__()
         self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
         self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
         self.attn = attn.gqa_init(cfg, ctx)
-        self.ffn = moe_mod.ffn_init(cfg, ctx)
+        if use_moe:
+            self.moe = moe_mod.moe_init(cfg, ctx)
+        else:
+            self.ffn = moe_mod.ffn_init(cfg, ctx)
 
 
 def _dense_layer_fwd(p: DenseLayer, x: torch.Tensor, cfg: ModelConfig,
                      positions: torch.Tensor, mode: str, cache=None):
+    """-> (x, the cache (updated in place; None in "train"), MoE aux)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if mode == "train":
         a, new_cache = attn.gqa_forward(p.attn, h, cfg, positions), None
@@ -66,7 +75,12 @@ def _dense_layer_fwd(p: DenseLayer, x: torch.Tensor, cfg: ModelConfig,
         a, new_cache = fwd(p.attn, h, cfg, positions, cache)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + moe_mod.ffn_forward(p.ffn, h), new_cache
+    if hasattr(p, "moe"):
+        f, aux = moe_mod.moe_forward(p.moe, h, cfg)
+    else:
+        f, aux = moe_mod.ffn_forward(p.ffn, h), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    return x + f, new_cache, aux
 
 
 def _at(tree: dict, i: int) -> dict:
@@ -74,20 +88,30 @@ def _at(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
 
 
+def _missing(cfg: ModelConfig) -> list[str]:
+    """What of ``cfg`` the port does not have yet."""
+    return [what for what, needed in (
+        ("MLA attention", cfg.attn_type == "mla"),
+        ("the first_k_dense stack", cfg.first_k_dense),
+        ("audio codebooks", cfg.n_codebooks),
+        ("the vision stub", cfg.vision_stub)) if needed]
+
+
 class Model(nn.Module):
-    """A hybrid, plain Mamba2 or RWKV6 language model on ``device`` (default: the
-    card; raises without one unless ``device="cpu"``).  Parameters are
-    allocated uninitialised; ``init`` fills them from a seed, and
-    ``params.load_reference_params`` from the JAX package's tree.
-    ``cfg.use_kernel`` None resolves to the kernels on CUDA."""
+    """A hybrid, plain Mamba2, RWKV6, dense or MoE language model on
+    ``device`` (default: the card; raises without one unless
+    ``device="cpu"``).  Parameters are allocated uninitialised; ``init``
+    fills them from a seed, and ``params.load_reference_params`` from the
+    JAX package's tree.  ``cfg.use_kernel`` None resolves to the kernels on
+    CUDA."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if not (cfg.rwkv or cfg.family in ("ssm", "hybrid")) \
-                or cfg.n_codebooks or cfg.vision_stub:
+        missing = _missing(cfg)
+        if missing:
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported to "
-                "repro_torch; ROADMAP.md, queue 1, lists where it waits")
+                f"{cfg.name}: {', '.join(missing)} not ported to repro_torch; "
+                "ROADMAP.md, queue 1, lists where it waits")
         dev = resolve_device(device)
         cfg = dataclasses.replace(
             cfg, use_kernel=resolve_use_kernel(cfg.use_kernel, dev))
@@ -102,9 +126,14 @@ class Model(nn.Module):
             self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
                                   scale=0.02)
         stack = InitCtx(cfg.dtype, dev, stack=cfg.n_layers)
-        layer = RwkvLayer if cfg.rwkv else MambaLayer
-        self.layers = nn.ModuleList(layer(cfg, stack)
-                                    for _ in range(cfg.n_layers))
+        if cfg.rwkv:
+            layers = [RwkvLayer(cfg, stack) for _ in range(cfg.n_layers)]
+        elif self._dense:
+            layers = [DenseLayer(cfg, stack, use_moe=cfg.n_experts > 0)
+                      for _ in range(cfg.n_layers)]
+        else:
+            layers = [MambaLayer(cfg, stack) for _ in range(cfg.n_layers)]
+        self.layers = nn.ModuleList(layers)
         if cfg.hybrid_attn_every:
             self.shared_attn = DenseLayer(cfg, ctx)
 
@@ -129,6 +158,11 @@ class Model(nn.Module):
         pos = torch.arange(S, device=tokens.device)[None, :] + offset
         return pos.expand(B, S)
 
+    @property
+    def _dense(self) -> bool:
+        """A dense or MoE stack (neither RWKV6 nor Mamba2)."""
+        return not self.cfg.rwkv and self.cfg.family not in ("ssm", "hybrid")
+
     def _shared_due(self, i: int) -> bool:
         k = self.cfg.hybrid_attn_every
         return bool(k) and (i + 1) % k == 0
@@ -136,11 +170,18 @@ class Model(nn.Module):
     # ----------------------------- forward ----------------------------- #
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor):
-        """tokens (B, S) -> (logits (B, S, V), aux 0.0): the reference's
-        training forward, without autograd."""
+        """tokens (B, S) -> (logits (B, S, V), aux): the reference's
+        training forward, without autograd.  ``aux`` is the MoE load-balance
+        loss summed over the layers (0.0 without experts)."""
         cfg = self.cfg
         x = self.embed(tokens)
         positions = self._positions(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self._dense:
+            for layer in self.layers:
+                x, _, a = _dense_layer_fwd(layer, x, cfg, positions, "train")
+                aux = aux + a
+            return self.logits(x), aux
         for i, layer in enumerate(self.layers):
             if cfg.rwkv:
                 x = x + rwkv_mod.rwkv6_time_mix(
@@ -151,10 +192,9 @@ class Model(nn.Module):
             x = x + ssm_mod.mamba2_forward(
                 layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
             if self._shared_due(i):
-                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
-                                        "train")
-        return self.logits(x), torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
+                                           positions, "train")
+        return self.logits(x), aux
 
     # ------------------------------ cache ------------------------------ #
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -163,11 +203,17 @@ class Model(nn.Module):
         and, for the hybrid, ``shared_attn`` {k, v (n_attn, B, L, Hkv, hd),
         len (n_attn, 1) int32}, one KV cache per application of the shared
         block.  For RWKV6, ``layers`` {wkv (n, B, H, K, K) f32, shift_t and
-        shift_c (n, B, d)}, whatever ``max_len``."""
+        shift_c (n, B, d)}, whatever ``max_len``.  For the dense and MoE
+        stacks, ``layers`` {k, v (n, B, L, Hkv, hd), len (n, 1) int32}, L
+        ``max_len`` or, with a sliding window, the smaller of it and the
+        window (a ring)."""
         cfg = self.cfg
         if cfg.rwkv:
             return {"layers": rwkv_mod.rwkv6_state_init(
                 cfg, batch, device=self.device, n=cfg.n_layers)}
+        if self._dense:
+            return {"layers": attn.gqa_cache_init(
+                cfg, batch, max_len, device=self.device, n=cfg.n_layers)}
         cache = {"layers": ssm_mod.mamba2_state_init(
             cfg, batch, device=self.device, n=cfg.n_layers)}
         if cfg.hybrid_attn_every:
@@ -214,6 +260,11 @@ class Model(nn.Module):
         if cfg.rwkv:
             x = self._rwkv_stack(x, layers, carry=False)
             return self.logits(x[:, -1:]), cache
+        if self._dense:
+            for i, layer in enumerate(self.layers):
+                x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                           "prefill", _at(layers, i))
+            return self.logits(x[:, -1:]), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_forward(
@@ -223,9 +274,9 @@ class Model(nn.Module):
             layers["ssm"][i].copy_(ssm_state)
             layers["conv"][i].copy_(conv_state)
             if self._shared_due(i):
-                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
-                                        "prefill",
-                                        _at(cache["shared_attn"], attn_idx))
+                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
+                                           positions, "prefill",
+                                           _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
         return self.logits(x[:, -1:]), cache
 
@@ -240,10 +291,16 @@ class Model(nn.Module):
         if cfg.rwkv:
             return self.logits(self._rwkv_stack(x, layers, carry=True)), cache
         positions = None
-        if cfg.hybrid_attn_every:
-            # a copy: the shared block's first application bumps len
-            pos = cache["shared_attn"]["len"][0, 0].clone()
+        attn_cache = layers if self._dense else cache.get("shared_attn")
+        if attn_cache is not None:
+            # a copy: the first attention layer bumps len in place
+            pos = attn_cache["len"][0, 0].clone()
             positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+        if self._dense:
+            for i, layer in enumerate(self.layers):
+                x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                           "decode", _at(layers, i))
+            return self.logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_decode(
@@ -253,9 +310,9 @@ class Model(nn.Module):
             layers["ssm"][i].copy_(ssm_state)
             layers["conv"][i].copy_(conv_state)
             if self._shared_due(i):
-                x, _ = _dense_layer_fwd(self.shared_attn, x, cfg, positions,
-                                        "decode",
-                                        _at(cache["shared_attn"], attn_idx))
+                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
+                                           positions, "decode",
+                                           _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
         return self.logits(x), cache
 

@@ -122,6 +122,17 @@ def test_entry_points_default_to_the_card(no_cuda):
         offline_db_from_state({})
     # asking for the CPU by name runs
     assert fit_clusters(X, m_range=range(2, 4), device="cpu").m in (2, 3)
+    # a dense and a MoE model built with no device raise rather than fall
+    # back to the CPU; asked for the CPU by name they build there
+    for arch in ("minitron-4b", "mixtral-8x22b"):
+        cfg = get_config(arch, "smoke")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Model(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+        model = build_model(cfg, "cpu")
+        assert model.cfg.use_kernel is False
+        assert all(p.device.type == "cpu" for p in model.parameters())
 
 
 def test_baseline_spline_and_checkpoint_entry_points_default_to_the_card(

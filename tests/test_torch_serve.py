@@ -36,36 +36,12 @@ from repro_torch.models.params import load_reference_params, paths_from_tree
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+import _lm_parity as lm  # noqa: E402
+
 B, S, STEPS = 2, 16, 8        # S a multiple of the smoke chunk (8): the
                               # Pallas SSD takes no ragged L with a state
 
-
-DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOKENS = np.random.default_rng(0).integers(0, 256, (B, S + STEPS))
-
-
-def _jax_model(dtype: str, use_pallas: bool):
-    from repro.configs import get_config as jget
-    from repro.models.model import build_model as jbuild
-    jcfg = dataclasses.replace(jget("zamba2-7b", "smoke"),
-                               dtype=DTYPES[dtype][0], use_pallas=use_pallas)
-    jm = jbuild(jcfg)
-    params, _ = jm.init(jax.random.PRNGKey(0))
-    return jm, params
-
-
-def _port_model(dtype: str, use_kernel: bool):
-    """The port's model on the reference's weights (its float32 init; the
-    bf16 init is the same values rounded, as the port's cast rounds them)."""
-    _, params = _jax_model("float32", False)
-    tcfg = dataclasses.replace(get_config("zamba2-7b", "smoke"),
-                               dtype=DTYPES[dtype][1], use_kernel=use_kernel)
-    tm = build_model(tcfg, "cpu", seed=None)
-    load_reference_params(tm, {k: np.asarray(v) for k, v
-                               in paths_from_tree(params).items()})
-    assert tm.cfg.use_kernel is use_kernel
-    return tm
 
 
 @pytest.fixture
@@ -73,11 +49,6 @@ def interpret_pallas(monkeypatch):
     """The reference's LM kernels in interpret mode, as its own tests run
     them."""
     interpret_reference_lm_kernels(monkeypatch)
-
-
-def _f32(x):
-    return (x.float().numpy() if isinstance(x, torch.Tensor)
-            else np.asarray(x.astype(jnp.float32)))
 
 
 def _run(model, params=None):
@@ -93,13 +64,13 @@ def _run(model, params=None):
     else:
         cache = model.init_cache(B, S + STEPS + 4)
         lg, cache = model.prefill(arr(TOKENS[:, :S]), cache)
-    out = {"forward": _f32(fwd), "prefill": _f32(lg)}
+    out = {"forward": lm.f32(fwd), "prefill": lm.f32(lg)}
     for j in range(STEPS):
         t = arr(TOKENS[:, S + j:S + j + 1])
         lg, cache = (model.decode(params, t, cache) if jax_side
                      else model.decode(t, cache))
-        out[f"decode{j}"] = _f32(lg)
-    out["ssm"] = _f32(cache["layers"]["ssm"])
+        out[f"decode{j}"] = lm.f32(lg)
+    out["ssm"] = lm.f32(cache["layers"]["ssm"])
     out["len"] = np.asarray(cache["shared_attn"]["len"])
     return out
 
@@ -111,26 +82,12 @@ def _reference(dtype: str, use_pallas: bool):
     """The JAX model's outputs, computed once per (dtype, route)."""
     key = (dtype, use_pallas)
     if key not in _REFERENCE:
-        _REFERENCE[key] = _run(*_jax_model(dtype, use_pallas))
+        _REFERENCE[key] = _run(*lm.jax_model("zamba2-7b", dtype,
+                                                   use_pallas))
     return _REFERENCE[key]
 
 
-def _err(a, b):
-    return float(np.abs(a - b).max())
-
-
-def _clear_picks_equal(got, want, bound):
-    """Greedy picks equal wherever the reference's pick is clear of the
-    tolerance (best logit ahead of the second by more than 2 x bound);
-    returns how many were clear."""
-    two = np.sort(want, axis=-1)[..., -2:]
-    clear = (two[..., 1] - two[..., 0]) > 2 * bound
-    np.testing.assert_array_equal(np.argmax(got, -1)[clear],
-                                  np.argmax(want, -1)[clear])
-    return int(clear.sum())
-
-
-LOGITS = ["forward", "prefill"] + [f"decode{j}" for j in range(STEPS)]
+LOGITS = lm.logit_keys(STEPS)
 
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["oracles", "kernels"])
@@ -138,15 +95,15 @@ def test_zamba2_smoke_matches_reference_float32(kernels, request):
     if kernels:
         request.getfixturevalue("interpret_pallas")
     want = _reference("float32", kernels)
-    got = _run(_port_model("float32", kernels))
+    got = _run(lm.port_model("zamba2-7b", "float32", kernels))
     n_clear = n_all = 0
     for key in LOGITS:
         bound = 1e-4 * max(float(np.abs(want[key]).max()), 1.0)
-        assert _err(got[key], want[key]) <= bound, key
-        n_clear += _clear_picks_equal(got[key], want[key], bound)
+        assert lm.err(got[key], want[key]) <= bound, key
+        n_clear += lm.clear_picks_equal(got[key], want[key], bound)
         n_all += want[key][..., 0].size
     assert n_clear >= 0.9 * n_all
-    assert _err(got["ssm"], want["ssm"]) <= 1e-4 * np.abs(want["ssm"]).max()
+    assert lm.err(got["ssm"], want["ssm"]) <= 1e-4 * np.abs(want["ssm"]).max()
     np.testing.assert_array_equal(got["len"], want["len"])
 
 
@@ -160,19 +117,9 @@ def test_zamba2_smoke_bfloat16_as_close_as_the_reference(kernels, request):
     over all rows (measured 1.15x)."""
     if kernels:
         request.getfixturevalue("interpret_pallas")
-    f32 = _reference("float32", kernels)
-    ref_bf16 = _reference("bfloat16", kernels)
-    got = _run(_port_model("bfloat16", kernels))
-    for key in LOGITS:
-        ours, theirs = _err(got[key], f32[key]), _err(ref_bf16[key], f32[key])
-        assert np.isfinite(got[key]).all()
-        assert ours <= 1.5 * theirs, (key, ours, theirs)
-
-    def rms(d):
-        return np.sqrt(np.mean(np.concatenate(
-            [(d[k] - f32[k]).ravel() for k in LOGITS]) ** 2))
-    assert rms(got) <= 1.25 * rms(ref_bf16), (rms(got), rms(ref_bf16))
-    np.testing.assert_array_equal(got["len"], f32["len"])
+    got = _run(lm.port_model("zamba2-7b", "bfloat16", kernels))
+    lm.assert_bfloat16_as_close(got, _reference("bfloat16", kernels),
+                                _reference("float32", kernels), STEPS)
 
 
 def test_prefill_decode_consistency_on_the_port():
@@ -247,17 +194,24 @@ def test_load_reference_params_checks_names_and_shapes():
         load_reference_params(model, {"ln_f": np.ones(cfg.d_model + 1)})
 
 
-def test_registry_has_zamba2_only_and_names_roadmap():
-    """The registry holds the ported architectures, zamba2-7b and
-    rwkv6-1.6b, each config equal to the reference's field by field; any
-    other id raises naming ROADMAP, and ``Model`` refuses a family still
-    unported."""
-    assert all_archs() == ["zamba2-7b", "rwkv6-1.6b"]
+def test_registry_has_the_ported_families_and_names_roadmap():
+    """The registry holds the ported architectures (the hybrid zamba2-7b,
+    rwkv6-1.6b, the dense minitron-4b, internlm2-20b, qwen2.5-32b and
+    llama3-405b, and the MoE mixtral-8x22b), each config equal to the
+    reference's field by field; any other id raises naming ROADMAP, and
+    ``Model`` refuses what is still unported: MLA, DeepSeek's
+    ``first_k_dense`` stack, audio codebooks and the vision stub."""
+    assert all_archs() == ["zamba2-7b", "rwkv6-1.6b", "minitron-4b",
+                           "internlm2-20b", "qwen2.5-32b", "llama3-405b",
+                           "mixtral-8x22b"]
     assert get_config("zamba2-7b", "full").n_layers == 81
     assert get_config("zamba2_7b", "smoke").dtype == torch.bfloat16
     assert get_config("rwkv6-1.6b", "full").n_layers == 24
     assert get_config("rwkv6_1_6b", "smoke").rwkv_chunk == 8
-    for arch in ("minitron-4b", "llama3-405b", "no-such-model"):
+    assert get_config("minitron-4b", "full").n_kv_heads == 8
+    assert get_config("mixtral_8x22b", "full").n_experts == 8
+    for arch in ("deepseek-v3-671b", "musicgen-large", "qwen2-vl-2b",
+                 "no-such-model"):
         with pytest.raises(ValueError, match="ROADMAP"):
             get_config(arch)
     from repro.configs import get_config as jget
@@ -270,10 +224,13 @@ def test_registry_has_zamba2_only_and_names_roadmap():
                     assert getattr(ported, f.name) == getattr(ref_cfg, f.name), \
                         (arch, variant, f.name)
             assert ported.n_params_dense_est == ref_cfg.n_params_dense_est
-    dense = dataclasses.replace(get_config("zamba2-7b", "smoke"),
-                                family="dense", hybrid_attn_every=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dense, "cpu")
+    mixtral = get_config("mixtral-8x22b", "smoke")
+    for what, over in (("MLA", {"attn_type": "mla"}),
+                       ("first_k_dense", {"first_k_dense": 1}),
+                       ("codebooks", {"n_codebooks": 4, "family": "audio"}),
+                       ("vision", {"vision_stub": True, "family": "vlm"})):
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            Model(dataclasses.replace(mixtral, **over), "cpu")
 
 
 def test_serve_runs_end_to_end_on_the_cpu(capsys):
