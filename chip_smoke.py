@@ -57,14 +57,23 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               its recommendation and under (1, 1, 1), restored to the card
               bit for bit, and one prefill through the restored model (24
               ``rwkv6``, logits equal to the original's); ``TokenPipeline``
-              at the serve shape fed to the card.
+              at the serve shape fed to the card;
+12. serve  -- deepseek-v3-671b, MLA and the first_k_dense stack, at full
+              width (d_model 7168, 128 heads of 128 + 64 RoPE for q and k
+              and 128 for v, latents of 512 + 64, 256 routed experts of 2048
+              and one shared, top 8 by a sigmoid gate) and 5 of its 61
+              layers, its 3 dense ones and 2 MoE (the whole model is 671 B
+              parameters; its float32 check runs the 3 dense and 1 MoE) the
+              same way; one prefill launches exactly 5 ``flash_attention``,
+              all on the kernel's KD = 12 instance (D = 192 unpadded),
+              decode none (MLA's absorbed decode is plain torch).
 
-Phases 3 to 11 are the main path: every kernel's launch count is set to
+Phases 3 to 12 are the main path: every kernel's launch count is set to
 0 just before each and read just after (phase 11: just around the restored
 model's prefill), and a kernel that the path did not launch fails the run.
 Phases 3 to 6 end with one more, profiled run of a fit, a fleet or a
-training, and phases 7-10 profile decode steps and a prefill, to report how
-much of the wall time the card spent running kernels.  Before phase 3 a
+training, and phases 7-10 and 12 profile decode steps and a prefill, to
+report how much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  The script needs a CUDA card
@@ -99,13 +108,23 @@ PARITY_N = 8                # its engine-parity and knowledge-service fleets
 SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
 # the port's LM families at full width: hybrid, RWKV6, dense GQA and MoE
 SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b", "minitron-4b", "mixtral-8x22b")
+MLA_ARCH = "deepseek-v3-671b"   # served after the checkpoint phase (12)
 SERVE_BATCH, SERVE_PROMPT = 8, 2048
 SERVE_STEPS = 64            # greedy decode steps after the prefill
 # depth cuts, where the whole model does not fit one 80 GB card: mixtral's
 # 56 layers are 281 GB in bf16, 8 of them 41 GB; its float32 check, twice
-# the bytes a layer, takes 2
-SERVE_LAYERS = {"mixtral-8x22b": 8}
-F32_LAYERS = {"mixtral-8x22b": 2}
+# the bytes a layer, takes 2.  deepseek-v3-671b's first 5 layers are its 3
+# dense ones (0.58 B parameters each) and 2 MoE (11.51 B each), with 1.85 B
+# of embedding and head 26.6 B, 53.2 GB in bf16 (a third MoE layer: 76
+# GB); its float32 check keeps the 3 dense and 1 MoE, 60 GB (a second MoE
+# layer alone is 46 GB).  Each cut stack's init std follows its cut depth
+# (1/sqrt(n) over the n layers of a stack, the reference's rule).
+SERVE_LAYERS = {"mixtral-8x22b": 8, MLA_ARCH: 5}
+F32_LAYERS = {"mixtral-8x22b": 2, MLA_ARCH: 4}
+# Above this many bytes of float32 scores (B x Hq x Sq x Sk x 4: 17.2 GB at
+# deepseek's 128 heads, beside 53 GB of weights) the plain attention runs
+# one batch row at a time (``plain_attention_by_row``); below it, as it is.
+PLAIN_SCORES_BYTES = 8e9
 
 
 class SmokeFailure(RuntimeError):
@@ -450,6 +469,97 @@ def attention_gap(out, want):
     return ((out.float() - want).abs() / unit).max().item()
 
 
+# Scores that float32 cannot resolve.  MLA at the reference's init (stacked
+# leaves of std 1/sqrt(3) and 1/sqrt(2), two projections deep) gives scores
+# of ~1e5-1e6 on the serve path: each row's softmax is all but one-hot, and
+# the float32 rounding of one score, ~(D + 2) 2^-24 of sum_d |q_d k_d|, can
+# exceed the gap between a row's two best keys, so two float32 orders pick
+# different keys there however right each is.  ``attention_float64_bound``
+# gives, per element, how far any attention whose scores carry that rounding
+# can be from the float64 attention on the same inputs; the MLA launches
+# are held to float64 within it (``conditioned_gap``).
+SCORE_ULPS = 2   # float32 roundings a score term: the tensor cores' adds truncate
+
+
+def conditioned_attention_gaps(q, k, v, out, want, unit, *,
+                               causal: bool = True, window: int = 0,
+                               q_offset: int = 0, heads: int = 16) -> dict:
+    """Hold ``out`` (the kernel's attention of q (B, Sq, Hq, D), k and v
+    (B, Sk, Hkv, D)) and ``want`` (the plain version's) to o, the attention
+    in float64 on the same values, element by element, allowing each
+    element b: the most that an attention whose every score s_j is off by
+    at most Delta_j = SCORE_ULPS (D + 2) 2^-24 scale sum_d |q_d k_jd| (a
+    float32 dot product of D terms, the scale and the exponent's rounding)
+    can differ from o.  With Delta* the row's largest Delta, |p'_j - p_j|
+    <= min(1, p_j expm1(Delta_j + Delta*)), and as the p's sum to 1,
+    |o'_d - o_d| <= the sum over j != j* (the row's best key) of that times
+    (|v_jd| + |v_j*d|).  Rounding p or the output is not in b: ``unit``
+    covers it, "bf16" for ``attention_gap``'s unit of o, or a number.
+
+    Returns {"kernel": max (|out - o| - b) / unit, "plain": the same of
+    want, "pair": max (|out - want| - 2 b) / unit (the two held to each
+    other directly), "score_max": the largest |score|, "near_rows": rows
+    that b lets move by more than 1e-3 of max |v| (their best key has a
+    rival within the rounding), "rows"}.  Evaluated a batch row and
+    ``heads`` q heads at a time, in float64 on the inputs' device."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ref
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    f64 = torch.float64
+    scale = 1.0 / math.sqrt(D)
+    gamma = SCORE_ULPS * (D + 2) * 2.0 ** -24
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    band = ref._band(qpos, torch.arange(Sk, device=q.device), causal, window)
+    vmax = v.abs().max().double().item()
+    res = {"kernel": -math.inf, "plain": -math.inf, "pair": -math.inf,
+           "score_max": 0.0, "near_rows": 0, "rows": B * Sq * Hq}
+    for b in range(B):
+        for h0 in range(0, Hq, heads):
+            hq = torch.arange(h0, min(h0 + heads, Hq), device=q.device)
+            hk = hq // (Hq // Hkv)
+            qh = q[b][:, hq].to(f64).transpose(0, 1)           # (h, Sq, D)
+            kh = k[b][:, hk].to(f64).transpose(0, 1)           # (h, Sk, D)
+            vh = v[b][:, hk].to(f64).transpose(0, 1)
+            s = (qh @ kh.transpose(1, 2)) * scale
+            res["score_max"] = max(res["score_max"],
+                                   s.masked_fill(~band, 0).abs().max().item())
+            s.masked_fill_(~band, ref.NEG_INF)
+            logp = torch.log_softmax(s, dim=-1)
+            best = s.argmax(-1, keepdim=True)
+            del s
+            x = (qh.abs() @ kh.abs().transpose(1, 2)) * (scale * gamma)
+            x.masked_fill_(~band, 0.0)
+            x += x.amax(-1, keepdim=True)                      # Delta + Delta*
+            # p expm1(x) = exp(log p + x + log1p(-exp(-x))), 0 at x = 0
+            w = torch.exp(logp + x + torch.log1p(-torch.exp(-x)))
+            del x
+            w.clamp_(max=1.0).scatter_(-1, best, 0.0)
+            vabs = vh.abs()
+            vbest = torch.gather(vabs, 1, best.expand(-1, -1, D))
+            bnd = w @ vabs + w.sum(-1, keepdim=True) * vbest
+            del w
+            o = logp.exp_() @ vh
+            del logp
+            u = attention_unit(o) if unit == "bf16" else unit
+            got = out[b][:, hq].to(f64).transpose(0, 1)
+            ref_ = want[b][:, hq].to(f64).transpose(0, 1)
+            for key, diff, n in (("kernel", got - o, 1), ("plain", ref_ - o, 1),
+                                 ("pair", got - ref_, 2)):
+                res[key] = max(res[key], ((diff.abs() - n * bnd) / u)
+                               .max().item())
+            res["near_rows"] += int((bnd.amax(-1) > 1e-3 * vmax).sum())
+    return res
+
+
+def attention_unit(want):
+    """``attention_gap``'s unit: 2^-8 |want| + 2^-9 max |want| of its row."""
+    want = want.abs().double()
+    return 2 ** -8 * want + 2 ** -9 * want.amax(-1, keepdim=True)
+
+
 def _attention_order(q, k, v, keep: str):
     """The bf16 kernel's order of operations, causal, over 64-key tiles, in
     plain torch (Hq = Hkv, Sk a multiple of 64: the serve shape), with one
@@ -484,13 +594,18 @@ def _attention_order(q, k, v, keep: str):
 
 def _attention_case(device, dtype, shape, causal: bool, window: int,
                     q_offset: int, label: str, library: bool,
-                    controls: bool = False) -> dict:
+                    controls: bool = False, padded: int | None = None) -> dict:
     """Hold ``flash_attention`` to its plain version on random q, k, v of
     ``shape`` = (B, Sq, Sk, Hq, Hkv, D), and time both (and SDPA); with
     ``controls`` (bf16, the serve shape) show that the bf16 bound rejects
-    the kernel's order with its accumulator or scores kept in bf16."""
+    the kernel's order with its accumulator or scores kept in bf16; with
+    ``padded`` (bf16), hold the instance D picks to the wider instance
+    ``padded`` on the same inputs (zero columns add exact zeros: equal bit
+    for bit) and time it too.  The returned ``instance`` is the bf16
+    kernel's instance that ran (None in float32)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -503,6 +618,18 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
 
     out_k = flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
+    instance = fa_mod.last_instance() if dtype == torch.bfloat16 else None
+    pad_text = ""
+    if padded is not None:
+        out_w = flash_attention_cuda(q, k, v, instance=padded, **kw)
+        torch.cuda.synchronize()
+        check(fa_mod.last_instance() == padded and torch.equal(out_k, out_w),
+              f"flash_attention {label}: the KD = {instance} instance differs "
+              f"from the KD = {padded} instance on the same inputs by "
+              f"{(out_k.float() - out_w.float()).abs().max().item():.3e}")
+        del out_w
+        padded_ms, _ = cuda_ms(lambda: flash_attention_cuda(
+            q, k, v, instance=padded, **kw), iters=10, reps=5)
     out_p = ops.plain_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     # float32: the kernel keeps float32 p, and only the order of sums
@@ -549,19 +676,25 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
     bound_ms, bound_by = bound(n_bytes, n_flops, peak)
     lib = "none" if library_ms is None else f"{library_ms:.4f}"
     # the dtype picks the kernel (csrc/flash_attention.cu's dispatch)
-    route = "tensor-core bf16" if dtype == torch.bfloat16 else "CUDA-core f32"
-    print(f"[kernels] flash_attention {label} {str(dtype)[6:]} ({route} "
-          f"kernel) B={B} Sq={Sq} "
+    route = (f"tensor-core bf16 kernel, KD = {instance}"
+             if dtype == torch.bfloat16 else "CUDA-core f32 kernel")
+    if padded is not None:
+        pad_text = (f" KD = {padded} instance on the same inputs: equal bit "
+                    f"for bit, kernel_ms={padded_ms:.4f} "
+                    f"({n_flops / padded_ms * 1e-9:.1f} TFLOP/s of the same "
+                    f"useful work);")
+    print(f"[kernels] flash_attention {label} {str(dtype)[6:]} ({route}) "
+          f"B={B} Sq={Sq} "
           f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window} "
           f"q_offset={q_offset}: max_abs_err={err:.3e} (tol {tol:.3e})"
           f"{gap_text}; "
           f"kernel_ms={ms:.4f} ({n_flops / ms * 1e-9:.1f} TFLOP/s) "
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"({bound_by}, {n_flops:.3e} flop, {n_bytes:.3e} B) sdpa_ms={lib}; "
-          f"per eager call kernel {call_ms:.4f} ms")
+          f"({bound_by}, {n_flops:.3e} flop, {n_bytes:.3e} B) sdpa_ms={lib};"
+          f"{pad_text} per eager call kernel {call_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "instance": instance}
 
 
 def phase_kernel_flash_attention(device) -> dict:
@@ -569,7 +702,9 @@ def phase_kernel_flash_attention(device) -> dict:
     a GQA + window + q_offset case with ragged Sq and Sk, in bf16 and f32;
     in bf16 also at the prefill shapes of the dense and MoE serve phases
     (minitron-4b's 24 heads over 8 kv heads of 128, mixtral-8x22b's 48 over
-    8, causal), reported and not gated on time.  The row reported is the
+    8, causal) and of MLA (deepseek-v3-671b's 128 heads at q-k width 192,
+    causal: the KD = 12 instance, held to the padded KD = 16 one and timed
+    beside it), reported and not gated on time.  The row reported is the
     zamba2 serve shape in bf16, the path's dtype."""
     import torch
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
@@ -586,7 +721,15 @@ def phase_kernel_flash_attention(device) -> dict:
         _attention_case(device, torch.bfloat16,
                         (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, heads, 8,
                          128), True, 0, 0, label, library=True)
+    mla = _attention_case(device, torch.bfloat16,
+                          (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 128, 128,
+                           192), True, 0, 0, "MLA shape (deepseek-v3-671b)",
+                          library=True, padded=16)
+    check(mla["instance"] == 12, f"D = 192 ran the KD = {mla['instance']} "
+          "instance of flash_attention, not KD = 12")
+    del mla
     torch.cuda.empty_cache()
+    row.pop("instance")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:96", **row}
@@ -1221,13 +1364,19 @@ def phase_fleet(device, card_db) -> dict[str, int]:
     return counts
 
 
-def _checked_kernels(errors: list, worst_ssd: dict):
+def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
+                     = None):
     """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
     ``ops.rwkv6_scan`` replaced by versions that launch the kernel, run its
     plain version on the same inputs, and append (name, max abs err,
     tolerance) to ``errors``.  For the bf16 ``ssd_scan`` launch farthest
     from the float32 plain route (``ssd_gap``), ``worst_ssd`` keeps that
     (batch, head): its inputs, the kernel's y and the float32 plain y.
+    With ``conditioned`` (MLA), each ``flash_attention`` launch and its
+    plain version are instead held to float64 within what float32 scores
+    can reach (``conditioned_attention_gaps``), and to each other; the
+    plain-version gate of the other families is then reported in
+    ``conditioned`` with the bound's statistics, not gated.
     The models look them up in ``ops`` at each call."""
     import contextlib
 
@@ -1241,8 +1390,29 @@ def _checked_kernels(errors: list, worst_ssd: dict):
         want = ops.plain_attention(q, k, v, **kw)
         tol = (2 ** -6 if q.dtype == torch.bfloat16 else 1e-4) \
             * v.abs().max().item()
-        errors.append(("flash_attention",
-                       (out.float() - want.float()).abs().max().item(), tol))
+        err = (out.float() - want.float()).abs().max().item()
+        if conditioned is not None:
+            bf16 = q.dtype == torch.bfloat16
+            r = conditioned_attention_gaps(
+                q, k, v, out, want, "bf16" if bf16 else tol, **kw)
+            c = ATTN_BF16_C if bf16 else 1.0
+            errors.extend([("flash_attention vs float64", r["kernel"], c),
+                           ("flash_attention plain vs float64", r["plain"], c),
+                           ("flash_attention vs plain", r["pair"], 2 * c)])
+            conditioned["score_max"] = max(conditioned.get("score_max", 0),
+                                           r["score_max"])
+            for key in ("near_rows", "rows"):
+                conditioned[key] = conditioned.get(key, 0) + r[key]
+            conditioned["plain gate"] = max(conditioned.get("plain gate", 0),
+                                            err / tol)
+            if bf16 and "control" not in conditioned:
+                # the bound's power on these activations: the kernel's
+                # order with its scores kept in bf16 must fail it
+                conditioned["control"] = conditioned_attention_gaps(
+                    q, k, v, _attention_order(q, k, v, "s"), want, "bf16",
+                    **kw)["kernel"]
+            return out
+        errors.append(("flash_attention", err, tol))
         if q.dtype == torch.bfloat16:   # and element by element (_attention_case)
             want = ops.plain_attention(q.float(), k.float(), v.float(), **kw)
             errors.append(("flash_attention vs float32",
@@ -1317,9 +1487,9 @@ def lm_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     ``n_decode`` decode steps of ``cfg``'s model make: an RWKV6 layer runs
     ``rwkv6`` in both; a hybrid runs ``ssd_scan`` in each Mamba2 layer's
     prefill and ``flash_attention`` in each shared block's, and neither in
-    decode; a dense or MoE layer runs ``flash_attention`` in its prefill and
-    none in decode (decode attention is plain torch, as in the
-    reference)."""
+    decode; a dense or MoE layer, of either of DeepSeek's stacks, runs
+    ``flash_attention`` in its prefill and none in decode (decode attention,
+    MLA's absorbed form included, is plain torch, as in the reference)."""
     n = dict.fromkeys(LM_KERNELS, 0)
     if cfg.rwkv:
         n["rwkv6"] = cfg.n_layers * (n_prefill + n_decode)
@@ -1356,8 +1526,10 @@ def _check_on_activations(model, prompts, label: str) -> None:
     cfg = model.cfg
     errors: list = []
     worst_ssd: dict = {}
+    mla = {} if cfg.attn_type == "mla" else None
+    bf16 = cfg.dtype == torch.bfloat16
     cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 2)
-    with _checked_kernels(errors, worst_ssd):
+    with _checked_kernels(errors, worst_ssd, mla):
         c0 = _lm_counts(launch_counts())
         model.prefill(prompts, cache)
         c1 = _lm_counts(launch_counts())
@@ -1379,6 +1551,21 @@ def _check_on_activations(model, prompts, label: str) -> None:
           f"same activations "
           f"(launches: prefill {in_prefill}, decode {in_decode}): worst "
           f"err/tol " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    if mla:
+        print(f"[serve {cfg.name}] {label} MLA attention held to float64: "
+              f"scores up to {mla['score_max']:.4g} in magnitude; "
+              f"{mla['near_rows']} of {mla['rows']} query rows have a rival "
+              f"key within float32's rounding of the best (the bound lets "
+              f"them move by more than 1e-3 of max |v|); the plain-version "
+              f"gate of the GQA families (2^-6 or 1e-4 of max |v|) would "
+              f"read {mla['plain gate']:.3f} of its tolerance (reported, "
+              f"not gated: float32 orders differ where scores tie within "
+              f"their rounding)" + (f"; the kernel's order with bf16 scores "
+              f"reads {mla['control']:.1f} units beyond the bound (must "
+              f"exceed {ATTN_BF16_C})" if "control" in mla else ""))
+        check(not bf16 or mla.get("control", 0) > ATTN_BF16_C,
+              f"{label}: the float64 attention bound passes the kernel's "
+              f"order with bf16 scores ({mla.get('control')} units)")
     if worst_ssd:
         # ssd_gap's gate on these activations, and a third witness at the
         # (batch, head) farthest from the float32 plain route: the kernel's
@@ -1403,8 +1590,8 @@ def _check_on_activations(model, prompts, label: str) -> None:
     # two results a launch: every ssd_scan and rwkv6 launch of the serve path
     # returns its final state, and a bf16 flash_attention or ssd_scan is
     # also held to the float32 plain route
-    bf16 = cfg.dtype == torch.bfloat16
-    per_launch = {"flash_attention": 2 if bf16 else 1,
+    per_launch = {"flash_attention": 3 if mla is not None else
+                  (2 if bf16 else 1),
                   "ssd_scan": 3 if bf16 else 2, "rwkv6": 2}
     n_results = sum(per_launch[name] * (c2[name] - c0[name])
                     for name in LM_KERNELS)
@@ -1413,7 +1600,42 @@ def _check_on_activations(model, prompts, label: str) -> None:
           f"with their plain versions: {bad[:4]}")
 
 
+def plain_attention_by_row(fn):
+    """The plain attention ``fn`` evaluated one batch row at a time and
+    concatenated: the same function of every element, with one row's
+    scores live instead of the batch's."""
+    import torch
+
+    def by_row(q, k, v, **kw):
+        return torch.cat([fn(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+                          for b in range(q.shape[0])])
+    return by_row
+
+
 def phase_serve(device, arch: str) -> dict[str, int]:
+    """``_serve`` of ``arch``, with ``ops.plain_attention`` evaluated by
+    batch row (``plain_attention_by_row``) where the serve shape's float32
+    scores pass ``PLAIN_SCORES_BYTES``: in the plain route's runs and in
+    every check that holds a kernel launch to it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    full = get_config(arch, "full")
+    scores = SERVE_BATCH * full.n_heads * SERVE_PROMPT ** 2 * 4
+    plain = ops.plain_attention
+    if scores > PLAIN_SCORES_BYTES:
+        print(f"[serve {full.name}] the plain attention's float32 scores "
+              f"would take {scores / 1e9:.1f} GB at once: evaluated one "
+              f"batch row ({scores / SERVE_BATCH / 1e9:.2f} GB) at a time")
+        ops.plain_attention = plain_attention_by_row(plain)
+    try:
+        return _serve(device, arch)
+    finally:
+        ops.plain_attention = plain
+
+
+def _serve(device, arch: str) -> dict[str, int]:
     """``arch`` at full width, and at full depth unless ``SERVE_LAYERS``
     cuts it, on the card: 8 prompts of 2048 tokens, prefill, then 64 greedy
     decode steps through the kernels, timed and counted (exactly
@@ -1443,6 +1665,9 @@ def phase_serve(device, arch: str) -> dict[str, int]:
         arch, full.n_layers))
     cut = (f" (cut: {cfg.n_layers} of its {full.n_layers} layers, full "
            f"width)" if cfg.n_layers < full.n_layers else "")
+    if cfg.n_experts and cfg.first_k_dense:
+        cut += (f", {cfg.first_k_dense} dense and "
+                f"{cfg.n_layers - cfg.first_k_dense} MoE")
     tag = f"[serve {cfg.name}]"
     t0 = time.perf_counter()
     model = build_model(cfg, device, seed=0)
@@ -1468,6 +1693,16 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     check(_lm_counts(counts) == want,
           f"a prefill and {SERVE_STEPS} decode steps launched "
           f"{_lm_counts(counts)}, not {want}")
+    if want["flash_attention"] and cfg.dtype == torch.bfloat16:
+        # the instance of the bf16 kernel that the run's last launch took
+        from repro_torch.kernels import flash_attention as fa_mod
+        inst = fa_mod.last_instance()
+        print(f"{tag} the bf16 flash_attention launches at D = "
+              f"{cfg.head_dim} ran the kernel's KD = {inst} instance (16 x "
+              f"{inst} columns)")
+        if cfg.attn_type == "mla":
+            check(inst == 12, f"MLA's D = {cfg.head_dim} ran the KD = {inst} "
+                  "instance of flash_attention, not KD = 12")
     logits = [run.prefill_logits] + run.decode_logits
     check(all(bool(torch.isfinite(lg).all()) for lg in logits)
           and run.prefill_logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
@@ -1544,13 +1779,18 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     #    gap is bounded by that growth of a 1e-6 difference, times
     #    sqrt(launches) for the places such differences enter: the prefill's
     #    and the decode steps' launches (zamba2-7b: 94, all in the prefill;
-    #    rwkv6-1.6b: 24 in each of the 9 calls; minitron-4b: 32 and
-    #    mixtral-8x22b's 2 float32 layers: 2, all in the prefill).
+    #    rwkv6-1.6b: 24 in each of the 9 calls; minitron-4b: 32,
+    #    mixtral-8x22b's 2 float32 layers: 2 and deepseek-v3-671b's 4: 4,
+    #    all in the prefill).
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=F32_LAYERS
                                 .get(arch, cfg.n_layers))
     if cfg32.n_layers < cfg.n_layers:
+        split = (f", {cfg32.first_k_dense} dense and "
+                 f"{cfg32.n_layers - cfg32.first_k_dense} MoE"
+                 if cfg32.n_experts and cfg32.first_k_dense else "")
         print(f"{tag} the float32 check runs {cfg32.n_layers} of the "
-              f"{cfg.n_layers} layers (float32 doubles a layer's bytes)")
+              f"{cfg.n_layers} layers{split} (float32 doubles a layer's "
+              f"bytes)")
     model = build_model(cfg32, device, seed=0)
     _check_on_activations(model, prompts, "float32")
     steps32 = 8
@@ -1561,15 +1801,13 @@ def phase_serve(device, arch: str) -> dict[str, int]:
     plain = serve(model, prompts, steps32 + 1, force=run.tokens,
                   keep_logits=True)
     errs, scale, agree, agree0 = _logit_gap(run, plain)
-    emb = model.embedding.detach().clone()
+    # the model's last use: the table is perturbed in place, not restored
     g = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
         model.embedding.mul_(1 + 1e-6 * torch.randn(
-            emb.shape, generator=g, device=device))
+            model.embedding.shape, generator=g, device=device))
     nudged, _ = model.prefill(prompts, model.init_cache(SERVE_BATCH,
                                                         SERVE_PROMPT + 1))
-    with torch.no_grad():
-        model.embedding.copy_(emb)
     growth = ((nudged - plain.prefill_logits).abs().max().item()
               / plain.prefill_logits.abs().max().item() / 1e-6)
     print(f"{tag} float32 plain prefill with the embeddings perturbed by "
@@ -1965,6 +2203,7 @@ def main() -> int:
              phase_fleet(device, card_db), phase_baselines(device)]
     paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
     paths.append(phase_checkpoint(device))
+    paths.append(phase_serve(device, MLA_ARCH))
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         check(row["launches"] > 0, f"the main path never launched {row['name']}")

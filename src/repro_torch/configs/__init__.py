@@ -12,7 +12,7 @@ import importlib
 
 ARCH_IDS = [
     "zamba2_7b", "rwkv6_1_6b", "minitron_4b", "internlm2_20b",
-    "qwen2_5_32b", "llama3_405b", "mixtral_8x22b",
+    "qwen2_5_32b", "llama3_405b", "mixtral_8x22b", "deepseek_v3_671b",
 ]
 
 # canonical dashed names from the assignment table
@@ -20,7 +20,7 @@ ALIASES = {
     "zamba2-7b": "zamba2_7b", "rwkv6-1.6b": "rwkv6_1_6b",
     "minitron-4b": "minitron_4b", "internlm2-20b": "internlm2_20b",
     "qwen2.5-32b": "qwen2_5_32b", "llama3-405b": "llama3_405b",
-    "mixtral-8x22b": "mixtral_8x22b",
+    "mixtral-8x22b": "mixtral_8x22b", "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

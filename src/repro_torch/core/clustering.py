@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, resolve_use_kernel
+from repro_torch.kernels.ref import column_dots
 
 # n at/above which fit_clusters routes "kmeans++" to the batched torch path.
 BATCHED_THRESHOLD = 4096
@@ -251,12 +252,13 @@ def _assign_stacked(xc: torch.Tensor, Cf: torch.Tensor, K: int, M: int
     """(CH, d) points vs (K*M, d) stacked centroids -> (CH, K) labels.
 
     The flattened twin of ``kernels.ref.cluster_assign_ref``: one
-    (CH, d) x (d, K*M) matmul scores every model order's centroids at
-    once; sentinel slots lose every argmin, so labels stay in [0, m).
+    (CH, K*M) pass of ``column_dots`` scores every model order's centroids
+    at once, each alike, so a tie between equal centroids goes to the first
+    index; sentinel slots lose every argmin, so labels stay in [0, m).
     """
     x2 = (xc * xc).sum(-1)[:, None]
-    c2 = (Cf * Cf).sum(-1)[None, :]
-    d2 = (x2 - 2.0 * (xc @ Cf.T) + c2).reshape(-1, K, M)
+    c2 = column_dots(Cf, Cf).diagonal()[None, :]
+    d2 = (x2 - 2.0 * column_dots(xc, Cf) + c2).reshape(-1, K, M)
     return torch.argmin(d2, dim=-1)
 
 

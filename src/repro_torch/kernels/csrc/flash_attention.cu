@@ -47,9 +47,11 @@
 // p; P is rounded to bf16 only as the A operand of P V, in registers (the
 // plain version's probs.to(v.dtype)); O stays float32.  The masks are
 // applied only on tiles that cross the diagonal, the window's edge or Sk.
-// D is padded with zero columns to 16 KD, KD in {1, 2, 4, 7, 8, 16} (7 for
-// zamba2's 112); shared rows are 16 KD + 8 elements long, an odd number of
-// 16-byte units, so each ldmatrix phase reads eight distinct bank groups.
+// D is padded with zero columns to 16 KD, KD in {1, 2, 4, 7, 8, 12, 16} (7
+// for zamba2's 112, 12 for MLA's 192: padded to 256 a third of every
+// product ran on zero columns); shared rows are 16 KD + 8 elements long, an
+// odd number of 16-byte units, so each ldmatrix phase reads eight distinct
+// bank groups.
 // The grid walks q tiles from the last, so that the longest causal rows
 // start first.  Not yet: wgmma, TMA and mbarriers, warp specialisation, a
 // persistent grid, and sharing K and V among the q heads of a group.
@@ -566,6 +568,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+int last_kd = 0;   // the instance of the last bf16 launch that was taken
+
 template <int KD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int Hq, int Hkv, int D, int causal, int window,
@@ -580,7 +584,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
       Sk, Hq, Hkv, D, causal, window, q_offset, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) last_kd = KD;
+  return static_cast<int>(err);
 }
 
 }  // namespace tc
@@ -603,23 +609,41 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // bfloat16: the tensor-core kernel, KD = D / 16 rounded up (to a power of
-// two but for 7)
-int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                  int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                  int window, long long q_offset, float scale,
-                  cudaStream_t stream) {
+// two but for 7, zamba2's head_dim 112, and 12, MLA's q-k width 192 = 128 +
+// 64 RoPE: both run unpadded)
+int bf16_instance(int D) {
   const int groups = (D + 15) / 16;
-  if (groups == 7)   // zamba2's head_dim 112, unpadded
-    return tc::launch<7>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
-  if (groups <= 1)
-    return tc::launch<1>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
-  if (groups <= 2)
-    return tc::launch<2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
-  if (groups <= 4)
-    return tc::launch<4>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
-  if (groups <= 8)
-    return tc::launch<8>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
-  return tc::launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+  if (groups == 7 || groups == 12) return groups;
+  int kd = 1;
+  while (kd < groups) kd *= 2;
+  return kd;
+}
+
+int launch_bf16(int kd, const void* q, const void* k, const void* v, void* o,
+                int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal,
+                int window, long long q_offset, float scale,
+                cudaStream_t stream) {
+  switch (kd) {
+    case 1: return tc::launch<1>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 2: return tc::launch<2>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 4: return tc::launch<4>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 7: return tc::launch<7>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 8: return tc::launch<8>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 12: return tc::launch<12>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    case 16: return tc::launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// what every entry point refuses (see flash_attention_launch)
+bool bad_args(const void* q, const void* k, const void* v, int dtype, int B,
+              int Sq, int Sk, int Hq, int Hkv, int D, int window) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
+      D < 8 || D > 256 || D % 8 != 0 || window < 0 || B > 65535 ||
+      Hq > 65535 || (dtype != 0 && dtype != 1))
+    return true;
+  return dtype == 1 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16 != 0;
 }
 
 }  // namespace
@@ -637,17 +661,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window,
                                       long long q_offset, float scale,
                                       void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      D < 8 || D > 256 || D % 8 != 0 || window < 0 || B > 65535 ||
-      Hq > 65535 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+  if (bad_args(q, k, v, dtype, B, Sq, Sk, Hq, Hkv, D, window))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_f32(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window,
                         q_offset, scale, s);
-  return dispatch_bf16(q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window,
-                       q_offset, scale, s);
+  return launch_bf16(bf16_instance(D), q, k, v, o, B, Sq, Sk, Hq, Hkv, D,
+                     causal, window, q_offset, scale, s);
 }
+
+// The bfloat16 kernel at instance `kd` (16 kd >= D) whatever D would pick:
+// to hold an instance to a wider one on the same inputs.
+extern "C" int flash_attention_launch_bf16_instance(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Sk, int Hq, int Hkv, int D, int causal, int window,
+    long long q_offset, float scale, int kd, void* stream) {
+  if (bad_args(q, k, v, 1, B, Sq, Sk, Hq, Hkv, D, window) || 16 * kd < D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16(kd, q, k, v, o, B, Sq, Sk, Hq, Hkv, D, causal, window,
+                     q_offset, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The instance of the last bfloat16 launch that was taken (0 before any).
+extern "C" int flash_attention_last_instance(void) { return tc::last_kd; }

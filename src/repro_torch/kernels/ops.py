@@ -79,8 +79,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """GQA scaled-dot-product attention. q: (B, Sq, Hq, D); k/v:
     (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype — the prefill of every
-    GQA attention layer: the hybrid's shared block and each layer of the
-    dense and MoE stacks (``models.attention``)."""
+    attention layer: the hybrid's shared block, each GQA layer of the
+    dense and MoE stacks and each MLA layer, at q-k width with v padded to
+    it (``models.attention``)."""
     if q.is_cuda:
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -72,6 +72,19 @@ def nat_spline_fit_ref(x: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # batched nearest-centroid assignment (offline clustering hot loop)
 # --------------------------------------------------------------------- #
+def column_dots(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """``X @ C.T`` for X (N, d) and C (M, d), summed over d in one fixed
+    order, so that two equal centroids give equal columns.  A BLAS product
+    promises no such thing: a vectorised kernel may round one column of a
+    tile differently from another, and then a tie between equal centroids
+    goes to the later one.  d is the feature count (4), so the d passes
+    over (N, M) cost what the product did."""
+    out = X[:, :1] * C[None, :, 0]
+    for j in range(1, X.shape[1]):
+        out = out + X[:, j:j + 1] * C[None, :, j]
+    return out
+
+
 def cluster_assign_ref(X: torch.Tensor, C: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centroid assignment for many points at once.
@@ -79,13 +92,14 @@ def cluster_assign_ref(X: torch.Tensor, C: torch.Tensor
     X: (N, d) points; C: (M, d) centroids, both float32.  Returns (labels
     (N,) int32, min squared distance (N,) float32), the distance expanded as
     ``max(|x|^2 - 2 x.c + |c|^2, 0)`` and the label the first index of the
-    minimum.
+    minimum: each centroid's terms are computed alike (``column_dots``), as
+    the CUDA kernel computes them one centroid at a time.
     """
     X = X.to(torch.float32)
     C = C.to(torch.float32)
     x2 = (X * X).sum(-1, keepdim=True)                    # (N, 1)
-    c2 = (C * C).sum(-1)[None, :]                         # (1, M)
-    d2 = torch.clamp(x2 - 2.0 * (X @ C.T) + c2, min=0.0)  # (N, M)
+    c2 = column_dots(C, C).diagonal()[None, :]            # (1, M)
+    d2 = torch.clamp(x2 - 2.0 * column_dots(X, C) + c2, min=0.0)  # (N, M)
     return torch.argmin(d2, dim=1).to(torch.int32), torch.amin(d2, dim=1)
 
 

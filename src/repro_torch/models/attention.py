@@ -1,22 +1,28 @@
-"""Grouped-query attention with prefill and decode paths (the GQA half of
-``repro.models.attention``; MLA waits in ROADMAP.md).
+"""Attention blocks with prefill and decode paths, as in
+``repro.models.attention``: grouped-query attention (GQA, optional sliding
+window) and DeepSeek-V3's multi-head latent attention (MLA).
 
 Prefill goes through ``kernels.ops.flash_attention`` (the hand-written
 CUDA kernel on the card) when ``cfg.use_kernel`` is set, else through the
 plain route ``kernels.ops.plain_attention``; decode is plain torch on every
-device, as in the reference.
+device, as in the reference.  MLA's prefill pads v from ``v_head_dim`` to
+the query-key width and slices the output back, as the reference does, and
+caches only the latents; its decode is the reference's absorbed form.
 
-The decode cache is updated in place: ``gqa_prefill`` and ``gqa_decode``
-write the new keys and values and the length counter into the tensors of
-the ``cache`` dict they are given (which may be views into a stacked cache)
-and return that same dict.  The reference returns new arrays instead.
+The decode cache is updated in place: the prefill and decode functions
+write the new keys and values (MLA: latents) and the length counter into
+the tensors of the ``cache`` dict they are given (which may be views into a
+stacked cache) and return that same dict.  The reference returns new arrays
+instead.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import InitCtx
@@ -133,5 +139,146 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "len": torch.zeros(lead + (1,), dtype=torch.int32, device=device),
+    }
+
+
+# --------------------------------------------------------------------- #
+# MLA (DeepSeek-V3): latent-compressed KV + decoupled RoPE
+# --------------------------------------------------------------------- #
+class MLA(nn.Module):
+    """wq_a (d, q_lora), wq_b (q_lora, H, dn + dr), wkv_a (d, kv_lora +
+    dr), wkv_b (kv_lora, H, dn + dv), wo (H, dv, d): the reference's
+    ``mla_init`` leaves."""
+
+    def __init__(self, cfg: ModelConfig, ctx: InitCtx):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        self.wq_a = ctx.param("wq_a", (d, qr))
+        self.wq_b = ctx.param("wq_b", (qr, H, dn + dr))
+        self.wkv_a = ctx.param("wkv_a", (d, kvr + dr))
+        self.wkv_b = ctx.param("wkv_b", (kvr, H, dn + dv))
+        self.wo = ctx.param("wo", (H, dv, d))
+
+
+def mla_init(cfg: ModelConfig, ctx: InitCtx) -> MLA:
+    return MLA(cfg, ctx)
+
+
+def _mla_query(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    """einsum('bsd,dr,rhk->bshk') as two products (x wq_a first, rounded
+    to x's dtype as the reference's pairwise einsum rounds it), split into
+    (q_nope (B, S, H, dn), q_rope (B, S, H, dr) roped)."""
+    q = _proj(x @ p.wq_a, p.wq_b)
+    dn = cfg.qk_nope_head_dim
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latents(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """The compressed KV latent c_kv (B, S, kv_lora) and the decoupled
+    RoPE key k_rope (B, S, dr), roped."""
+    kv_a = x @ p.wkv_a
+    kvr = cfg.kv_lora_rank
+    k_rope = apply_rope(kv_a[..., None, kvr:], positions, cfg.rope_theta)
+    return kv_a[..., :kvr], k_rope[:, :, 0]
+
+
+def _mla_qkv(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, latents=None):
+    """q, k (B, S, H, dn + dr) and v (B, S, H, dv): k's RoPE half is the
+    shared k_rope broadcast over the heads.  ``latents``: ``_mla_latents``
+    of the same inputs, when the caller has them."""
+    dn, H = cfg.qk_nope_head_dim, cfg.n_heads
+    q_nope, q_rope = _mla_query(p, x, cfg, positions)
+    c_kv, k_rope = latents or _mla_latents(p, x, cfg, positions)
+    kv = _proj(c_kv, p.wkv_b)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k_rope_b = k_rope[:, :, None].expand(-1, -1, H, -1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    return q, k, v
+
+
+def _mla_attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention with v zero-padded to q's head width (the shared
+    attention primitive takes one D), the output sliced back to dv."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    attend = ops.flash_attention if cfg.use_kernel else ops.plain_attention
+    o = attend(q.contiguous(), k.contiguous(), F.pad(v, (0, dqk - dv)),
+               causal=True)
+    return o[..., :dv]
+
+
+def mla_forward(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal attention (prefill without a cache)."""
+    return _out(p, _mla_attend(*_mla_qkv(p, x, cfg, positions), cfg))
+
+
+def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, cache: dict):
+    """Prefill: full attention, and only the latents into the cache (in
+    place): c_kv and k_rope, kv_lora + dr values a position, not heads x
+    head width."""
+    latents = _mla_latents(p, x, cfg, positions)
+    q, k, v = _mla_qkv(p, x, cfg, positions, latents)
+    S = x.shape[1]
+    cache["ckv"][:, :S] = latents[0].to(cache["ckv"].dtype)
+    cache["krope"][:, :S] = latents[1].to(cache["krope"].dtype)
+    cache["len"].fill_(S)
+    return _out(p, _mla_attend(q, k, v, cfg)), cache
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cache: dict):
+    """Single-token decode with the absorbed matrices (cache updated in
+    place): the query is projected into the latent space through wkv_b's
+    key half, attends to the latent cache directly in float32, and the
+    attended latent goes through wkv_b's value half.  Plain torch on every
+    device, as in the reference.  The slot index stays on the device and is
+    clamped to the cache, as the reference's ``dynamic_update_slice``
+    clamps it."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_query(p, x, cfg, positions)    # (B, 1, H, .)
+    c_kv, k_rope = _mla_latents(p, x, cfg, positions)    # (B, 1, kvr/dr)
+    L = cache["ckv"].shape[1]
+    pos = cache["len"][0].long()
+    slot = torch.clamp(pos, max=L - 1)
+    cache["ckv"].index_copy_(1, slot, c_kv.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(1, slot, k_rope.to(cache["krope"].dtype))
+
+    wb_k, wb_v = p.wkv_b[..., :dn], p.wkv_b[..., dn:]    # (kvr, H, dn/dv)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wb_k)  # absorbed query
+    f32 = torch.float32
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
+    ckv = cache["ckv"].to(f32)
+    scores = (torch.einsum("bshr,blr->bhsl", q_lat.to(f32), ckv)
+              + torch.einsum("bshk,blk->bhsl", q_rope.to(f32),
+                             cache["krope"].to(f32))) * scale
+    valid = torch.arange(L, device=x.device) < pos + 1
+    scores = torch.where(valid, scores, torch.full_like(scores, ref.NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhsl,blr->bshr", probs, ckv)
+    o = torch.einsum("bshr,rhk->bshk", o_lat, wb_v.to(f32)).to(x.dtype)
+    cache["len"] += 1
+    return _out(p, o), cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                   device, n: int | None = None) -> dict:
+    """Zeroed latent cache: ckv (B, L, kv_lora), krope (B, L, dr) in the
+    model's dtype and len (1,) int32; with ``n``, ``n`` caches stacked on a
+    leading axis."""
+    lead = () if n is None else (n,)
+    return {
+        "ckv": torch.zeros(lead + (batch, max_len, cfg.kv_lora_rank),
+                           dtype=cfg.dtype, device=device),
+        "krope": torch.zeros(lead + (batch, max_len, cfg.qk_rope_head_dim),
+                             dtype=cfg.dtype, device=device),
         "len": torch.zeros(lead + (1,), dtype=torch.int32, device=device),
     }

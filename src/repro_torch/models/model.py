@@ -3,15 +3,17 @@ weight-shared attention(+MLP) block applied after every k-th layer), the
 plain Mamba2 stack, the RWKV6 stack (``cfg.rwkv``) and the dense and MoE
 families (a stack of GQA attention + SwiGLU or mixture-of-experts layers),
 inference only: ``forward``, ``prefill`` and ``decode`` as in
-``repro.models.model.Model``.
+``repro.models.model.Model``.  Attention is GQA or, with ``attn_type``
+"mla", DeepSeek-V3's multi-head latent attention; a MoE config with
+``first_k_dense`` runs that many dense-FFN layers (``dense_layers``) before
+its MoE ``layers``, as the reference does.
 
 The layers are ``nn.Module``s run in a Python loop (the reference scans a
 stacked tree); parameters keep the reference's names, so
 ``params.load_reference_params`` carries a JAX parameter tree over.  The
 decode cache keeps the reference's stacked layout, and ``prefill`` and
-``decode`` update it in place and return it.  MLA attention, DeepSeek's
-``first_k_dense`` stack, audio codebooks and the vision stub raise and wait
-in ROADMAP.md.
+``decode`` update it in place and return it.  Audio codebooks and the
+vision stub raise and wait in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -49,29 +51,38 @@ class RwkvLayer(nn.Module):
 
 
 class DenseLayer(nn.Module):
-    """Pre-norm attention + SwiGLU MLP (``ffn``) or mixture of experts
-    (``moe``): a layer of the dense and MoE stacks, and the hybrid's shared
-    block."""
+    """Pre-norm attention (GQA, or MLA by ``cfg.attn_type``) + SwiGLU MLP
+    (``ffn``) or mixture of experts (``moe``): a layer of the dense and MoE
+    stacks, and the hybrid's shared block."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx, use_moe: bool = False):
         super().__init__()
         self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
         self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
-        self.attn = attn.gqa_init(cfg, ctx)
+        self.attn = (attn.mla_init(cfg, ctx) if cfg.attn_type == "mla"
+                     else attn.gqa_init(cfg, ctx))
         if use_moe:
             self.moe = moe_mod.moe_init(cfg, ctx)
         else:
             self.ffn = moe_mod.ffn_init(cfg, ctx)
 
 
+_ATTENTION = {
+    "gqa": {"train": attn.gqa_forward, "prefill": attn.gqa_prefill,
+            "decode": attn.gqa_decode},
+    "mla": {"train": attn.mla_forward, "prefill": attn.mla_prefill,
+            "decode": attn.mla_decode},
+}
+
+
 def _dense_layer_fwd(p: DenseLayer, x: torch.Tensor, cfg: ModelConfig,
                      positions: torch.Tensor, mode: str, cache=None):
     """-> (x, the cache (updated in place; None in "train"), MoE aux)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
+    fwd = _ATTENTION["mla" if cfg.attn_type == "mla" else "gqa"][mode]
     if mode == "train":
-        a, new_cache = attn.gqa_forward(p.attn, h, cfg, positions), None
+        a, new_cache = fwd(p.attn, h, cfg, positions), None
     else:
-        fwd = {"prefill": attn.gqa_prefill, "decode": attn.gqa_decode}[mode]
         a, new_cache = fwd(p.attn, h, cfg, positions, cache)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
@@ -91,14 +102,13 @@ def _at(tree: dict, i: int) -> dict:
 def _missing(cfg: ModelConfig) -> list[str]:
     """What of ``cfg`` the port does not have yet."""
     return [what for what, needed in (
-        ("MLA attention", cfg.attn_type == "mla"),
-        ("the first_k_dense stack", cfg.first_k_dense),
         ("audio codebooks", cfg.n_codebooks),
         ("the vision stub", cfg.vision_stub)) if needed]
 
 
 class Model(nn.Module):
-    """A hybrid, plain Mamba2, RWKV6, dense or MoE language model on
+    """A hybrid, plain Mamba2, RWKV6, dense or MoE (DeepSeek's MLA and
+    first_k_dense stack included) language model on
     ``device`` (default: the card; raises without one unless
     ``device="cpu"``).  Parameters are allocated uninitialised; ``init``
     fills them from a seed, and ``params.load_reference_params`` from the
@@ -125,12 +135,18 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
                                   scale=0.02)
-        stack = InitCtx(cfg.dtype, dev, stack=cfg.n_layers)
+        # each stack's leaves take std 1/sqrt(that stack's depth)
+        n = cfg.n_layers - self._first_dense
+        stack = InitCtx(cfg.dtype, dev, stack=n)
+        if self._first_dense:
+            first = InitCtx(cfg.dtype, dev, stack=self._first_dense)
+            self.dense_layers = nn.ModuleList(
+                [DenseLayer(cfg, first) for _ in range(self._first_dense)])
         if cfg.rwkv:
             layers = [RwkvLayer(cfg, stack) for _ in range(cfg.n_layers)]
         elif self._dense:
             layers = [DenseLayer(cfg, stack, use_moe=cfg.n_experts > 0)
-                      for _ in range(cfg.n_layers)]
+                      for _ in range(n)]
         else:
             layers = [MambaLayer(cfg, stack) for _ in range(cfg.n_layers)]
         self.layers = nn.ModuleList(layers)
@@ -163,6 +179,18 @@ class Model(nn.Module):
         """A dense or MoE stack (neither RWKV6 nor Mamba2)."""
         return not self.cfg.rwkv and self.cfg.family not in ("ssm", "hybrid")
 
+    @property
+    def _first_dense(self) -> int:
+        """The dense-FFN layers before a MoE stack (DeepSeek's
+        ``first_k_dense``; 0 without experts, as in the reference)."""
+        cfg = self.cfg
+        return cfg.first_k_dense if cfg.n_experts and self._dense else 0
+
+    def _dense_stacks(self) -> list[str]:
+        """The dense and MoE families' layer stacks (attribute and cache
+        names) in order: ``dense_layers`` first where there is one."""
+        return (["dense_layers"] if self._first_dense else []) + ["layers"]
+
     def _shared_due(self, i: int) -> bool:
         k = self.cfg.hybrid_attn_every
         return bool(k) and (i + 1) % k == 0
@@ -178,9 +206,11 @@ class Model(nn.Module):
         positions = self._positions(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self._dense:
-            for layer in self.layers:
-                x, _, a = _dense_layer_fwd(layer, x, cfg, positions, "train")
-                aux = aux + a
+            for name in self._dense_stacks():
+                for layer in getattr(self, name):
+                    x, _, a = _dense_layer_fwd(layer, x, cfg, positions,
+                                               "train")
+                    aux = aux + a
             return self.logits(x), aux
         for i, layer in enumerate(self.layers):
             if cfg.rwkv:
@@ -206,14 +236,19 @@ class Model(nn.Module):
         shift_c (n, B, d)}, whatever ``max_len``.  For the dense and MoE
         stacks, ``layers`` {k, v (n, B, L, Hkv, hd), len (n, 1) int32}, L
         ``max_len`` or, with a sliding window, the smaller of it and the
-        window (a ring)."""
+        window (a ring); with MLA {ckv (n, B, L, kv_lora), krope (n, B, L,
+        dr), len}; with a ``first_k_dense`` stack, ``dense_layers`` the same
+        for its layers and ``layers`` for the MoE layers."""
         cfg = self.cfg
         if cfg.rwkv:
             return {"layers": rwkv_mod.rwkv6_state_init(
                 cfg, batch, device=self.device, n=cfg.n_layers)}
         if self._dense:
-            return {"layers": attn.gqa_cache_init(
-                cfg, batch, max_len, device=self.device, n=cfg.n_layers)}
+            init = (attn.mla_cache_init if cfg.attn_type == "mla"
+                    else attn.gqa_cache_init)
+            return {name: init(cfg, batch, max_len, device=self.device,
+                               n=len(getattr(self, name)))
+                    for name in self._dense_stacks()}
         cache = {"layers": ssm_mod.mamba2_state_init(
             cfg, batch, device=self.device, n=cfg.n_layers)}
         if cfg.hybrid_attn_every:
@@ -261,9 +296,10 @@ class Model(nn.Module):
             x = self._rwkv_stack(x, layers, carry=False)
             return self.logits(x[:, -1:]), cache
         if self._dense:
-            for i, layer in enumerate(self.layers):
-                x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                           "prefill", _at(layers, i))
+            for name in self._dense_stacks():
+                for i, layer in enumerate(getattr(self, name)):
+                    x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                               "prefill", _at(cache[name], i))
             return self.logits(x[:, -1:]), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
@@ -291,15 +327,17 @@ class Model(nn.Module):
         if cfg.rwkv:
             return self.logits(self._rwkv_stack(x, layers, carry=True)), cache
         positions = None
-        attn_cache = layers if self._dense else cache.get("shared_attn")
+        attn_cache = (cache.get("dense_layers", layers) if self._dense
+                      else cache.get("shared_attn"))
         if attn_cache is not None:
             # a copy: the first attention layer bumps len in place
             pos = attn_cache["len"][0, 0].clone()
             positions = pos.reshape(1, 1).expand(x.shape[0], 1)
         if self._dense:
-            for i, layer in enumerate(self.layers):
-                x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                           "decode", _at(layers, i))
+            for name in self._dense_stacks():
+                for i, layer in enumerate(getattr(self, name)):
+                    x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                               "decode", _at(cache[name], i))
             return self.logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):

@@ -110,20 +110,26 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     pos = torch.arange(T * k, device=x.device) - starts[se]
     slot = torch.where(pos < C, se * C + pos, E * C)     # E*C: overflow row
     # every real slot is written at most once; the overflow row takes
-    # whichever of its duplicates lands last and is never read
+    # whichever of its duplicates lands last
     buf = x.new_zeros((E * C + 1, d))
     buf[slot] = xt[st]
     xbuf = buf[:E * C].view(E, C, d)
 
     # ---- expert compute (batched over the expert axis) --------------- #
-    g = F.silu(torch.bmm(xbuf, p.w_gate))
-    u = torch.bmm(xbuf, p.w_up)
-    ybuf = torch.bmm(g * u, p.w_down)
+    # in place where the reference makes new arrays: the same products, and
+    # the expert outputs overwrite the dispatch buffer (at DeepSeek-V3's
+    # 16,384 prefill tokens it is 2.35 GB in bf16, and each copy spared
+    # counts beside the weights on one card)
+    h = F.silu(torch.bmm(xbuf, p.w_gate), inplace=True)
+    h.mul_(torch.bmm(xbuf, p.w_up))
+    torch.bmm(h, p.w_down, out=xbuf)
+    del h
+    buf[E * C].zero_()                 # a dropped pair's output is zero
 
     # ---- combine ------------------------------------------------------ #
-    ybuf_flat = torch.cat([ybuf.reshape(E * C, d), ybuf.new_zeros((1, d))])
-    y_tok = ybuf_flat[slot] * sw[:, None].to(ybuf.dtype)
-    y = x.new_zeros((T, d)).index_add_(0, st, y_tok.to(x.dtype))
+    y_tok = buf[slot]
+    y_tok.mul_(sw[:, None].to(buf.dtype))
+    y = x.new_zeros((T, d)).index_add_(0, st, y_tok)
 
     out = y.reshape(B, S, d)
     if hasattr(p, "shared"):

@@ -74,10 +74,13 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
         elif init == "ones":
             p.fill_(1.0)
+        elif p.dtype == torch.float32:   # drawn in place: no float32 copy
+            torch.randn(p.shape, generator=generator, out=p)
+            p.mul_(scale)
         else:
             z = torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32)
-            p.copy_(z * scale)
+            p.copy_(z.mul_(scale))
 
 
 def tree_from_paths(flat: dict[str, Any]) -> dict:
@@ -103,8 +106,9 @@ def paths_from_tree(tree: dict, prefix: str = "") -> dict[str, Any]:
     return out
 
 
-# the reference's trees whose leaves stack one entry per layer
-STACKED = ("layers",)
+# the reference's trees whose leaves stack one entry per layer (DeepSeek's
+# first_k_dense layers are a stack of their own)
+STACKED = ("layers", "dense_layers")
 # reference leaves the port names otherwise (``Model.embed`` is a method)
 RENAMED = {"embed": "embedding"}
 
@@ -115,7 +119,8 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
 
     ``flat`` is ``paths_from_tree(params)`` of the reference's tree with
     numpy arrays as leaves.  A stacked leaf (``layers.mixer.w_in``, shape
-    (n, ...)) fills the n per-layer parameters ``layers.<i>.mixer.w_in``.
+    (n, ...)) fills the n per-layer parameters ``layers.<i>.mixer.w_in``,
+    and likewise under ``dense_layers``.
     Every parameter of the model must be filled exactly once, each with its
     own shape; values are cast to the parameter's dtype.
     """

@@ -1,5 +1,6 @@
 """Shared helpers of the parity tests that hold the port's attention-stack
-language models (the dense and MoE families) to the JAX package's.
+language models (the dense and MoE families, DeepSeek's MLA included) to
+the JAX package's.
 
 A model is built on each side from one set of weights: the reference's
 ``Model.init`` draws them and ``params.load_reference_params`` carries them
@@ -56,8 +57,11 @@ def f32(x):
 def run(model, tokens: np.ndarray, S: int, steps: int, params=None) -> dict:
     """forward logits and aux on all of ``tokens``, prefill logits on the
     first ``S``, ``steps`` teacher-forced decode logits on the rest, and
-    the KV cache after them (``k``, ``v``, ``len``), as float32 numpy, from
-    either package (the JAX one when ``params`` is given)."""
+    the cache after them, as float32 numpy (``len`` as int32), from either
+    package (the JAX one when ``params`` is given).  The cache's entries of
+    ``layers`` keep their names (``k``, ``v``, ``len``; MLA: ``ckv``,
+    ``krope``, ``len``), those of another stack take its name as a prefix
+    (``dense_layers.ckv``)."""
     B = tokens.shape[0]
     jax_side = params is not None
     arr = jnp.asarray if jax_side else torch.from_numpy
@@ -75,10 +79,18 @@ def run(model, tokens: np.ndarray, S: int, steps: int, params=None) -> dict:
         lg, cache = (model.decode(params, t, cache) if jax_side
                      else model.decode(t, cache))
         out[f"decode{j}"] = f32(lg)
-    for key in ("k", "v"):
-        out[key] = f32(cache["layers"][key])
-    out["len"] = np.asarray(cache["layers"]["len"])
+    for stack, entries in cache.items():
+        for key, val in entries.items():
+            name = key if stack == "layers" else f"{stack}.{key}"
+            out[name] = np.asarray(val) if key == "len" else f32(val)
     return out
+
+
+CACHED = ("k", "v", "ckv", "krope")     # the cache's values, by leaf name
+
+
+def _cache_keys(out: dict, leaves) -> list[str]:
+    return sorted(k for k in out if k.rsplit(".", 1)[-1] in leaves)
 
 
 def logit_keys(steps: int) -> list[str]:
@@ -102,8 +114,8 @@ def clear_picks_equal(got, want, bound) -> int:
 
 def assert_float32_parity(got: dict, want: dict, steps: int) -> None:
     """Every logit within 1e-4 of max(|logits|, 1), clear greedy picks
-    equal (at least 90% of picks clear), the KV cache within 1e-4 of its
-    scale and ``len`` equal."""
+    equal (at least 90% of picks clear), every cached value (KV or MLA's
+    latents) within 1e-4 of its scale and ``len`` equal."""
     n_clear = n_all = 0
     for key in logit_keys(steps):
         bound = 1e-4 * max(float(np.abs(want[key]).max()), 1.0)
@@ -112,10 +124,12 @@ def assert_float32_parity(got: dict, want: dict, steps: int) -> None:
         n_clear += clear_picks_equal(got[key], want[key], bound)
         n_all += want[key][..., 0].size
     assert n_clear >= 0.9 * n_all
-    for key in ("k", "v"):
+    assert _cache_keys(got, CACHED) == _cache_keys(want, CACHED)
+    for key in _cache_keys(want, CACHED):
         assert got[key].shape == want[key].shape
         assert err(got[key], want[key]) <= 1e-4 * np.abs(want[key]).max(), key
-    np.testing.assert_array_equal(got["len"], want["len"])
+    for key in _cache_keys(want, ("len",)):
+        np.testing.assert_array_equal(got[key], want[key])
     assert abs(got["aux"] - want["aux"]) <= 1e-5 * max(abs(want["aux"]), 1.0)
 
 
@@ -135,7 +149,8 @@ def assert_bfloat16_as_close(got: dict, ref_bf16: dict, ref_f32: dict,
         return np.sqrt(np.mean(np.concatenate(
             [(d[k] - ref_f32[k]).ravel() for k in keys]) ** 2))
     assert rms(got) <= 1.25 * rms(ref_bf16), (rms(got), rms(ref_bf16))
-    np.testing.assert_array_equal(got["len"], ref_f32["len"])
+    for key in _cache_keys(ref_f32, ("len",)):
+        np.testing.assert_array_equal(got[key], ref_f32[key])
 
 
 def prefill_decode_consistency(arch: str, n_decode: int = 3) -> None:
@@ -144,8 +159,9 @@ def prefill_decode_consistency(arch: str, n_decode: int = 3) -> None:
     float32), and ``len`` counts every token.  The tolerance is 1e-4 of the
     logits' scale, not that test's 5%: in float32 on one framework the
     routes differ only in the order of sums (and the smoke MoE's capacity
-    drops nothing), and a position read as a view of layer 0's ``len``,
-    which roped every later layer at pos + 1, must fail it."""
+    drops nothing), and a position read as a view of the first layer's
+    ``len``, which roped every later layer at pos + 1, must fail it.
+    ``len`` counts every token in every layer of every stack."""
     cfg = dataclasses.replace(get_config(arch, "smoke"), dtype=torch.float32)
     model = build_model(cfg, "cpu", seed=1)
     S = 12
@@ -159,5 +175,67 @@ def prefill_decode_consistency(arch: str, n_decode: int = 3) -> None:
     for j in range(n_decode):
         lg, cache = model.decode(toks[:, S + j:S + j + 1], cache)
         assert float((lg - full[:, S + j:S + j + 1]).abs().max()) < tol, j
-    assert cache["layers"]["len"].flatten().tolist() == \
-        [S + n_decode] * cfg.n_layers
+    lens = torch.cat([stack["len"].flatten() for stack in cache.values()])
+    assert lens.tolist() == [S + n_decode] * cfg.n_layers
+
+
+# the reference unrolled, so that its top_k sees each layer's values
+UNROLLED = {"scan_layers": False, "remat": False}
+
+
+def moe_calls(cfg, steps: int) -> int:
+    """MoE routings of one ``run``: each MoE layer in the forward, the
+    prefill and each decode step."""
+    dense = cfg.first_k_dense if cfg.n_experts else cfg.n_layers
+    return (cfg.n_layers - dense) * (2 + steps)
+
+
+def pinned_bf16(monkeypatch, arch: str, toks: np.ndarray, S: int,
+                steps: int, kernels: bool):
+    """(the port's bf16 run, the reference's bf16 run, the reference's
+    float32 run) of ``run(.., toks, S, steps)``, every MoE layer of the two
+    bf16 runs taking the experts (ids and order) that the float32 run's
+    ``jax.lax.top_k`` chose at that call; gates are the run's own
+    probabilities at those experts, renormalised as ``moe_forward`` does.
+    Routing is a discrete function of bf16-rounded activations, and each
+    framework's bf16 run sends some tokens to another expert than float32
+    does, near-ties that fall either way, not the same tokens: pinned, the
+    bf16 arithmetic alone is compared."""
+    from repro_torch.models import moe as tmoe_mod
+    top_k, route = jax.lax.top_k, tmoe_mod._route
+    chosen = []
+
+    def recording(probs, k):
+        v, i = top_k(probs, k)
+        chosen.append(np.asarray(i))
+        return v, i
+
+    monkeypatch.setattr(jax.lax, "top_k", recording)
+    jm, params = jax_model(arch, "float32", kernels, **UNROLLED)
+    ref_f32 = run(jm, toks, S, steps, params)
+    assert len(chosen) == moe_calls(jm.cfg, steps)
+
+    calls = iter(chosen)
+
+    def pinned_jax(probs, k):
+        i = jnp.asarray(next(calls))
+        return jnp.take_along_axis(probs, i, axis=-1), i
+
+    monkeypatch.setattr(jax.lax, "top_k", pinned_jax)
+    jm, params = jax_model(arch, "bfloat16", kernels, **UNROLLED)
+    ref_bf16 = run(jm, toks, S, steps, params)
+    monkeypatch.setattr(jax.lax, "top_k", top_k)
+
+    calls = iter(chosen)
+
+    def pinned_port(p, xt, cfg):
+        probs, _, _ = route(p, xt, cfg)
+        i = torch.from_numpy(next(calls).copy()).long()
+        v = probs.gather(-1, i)
+        return probs, v / torch.clamp(v.sum(-1, keepdim=True), min=1e-9), i
+
+    monkeypatch.setattr(tmoe_mod, "_route", pinned_port)
+    got = run(port_model(arch, "bfloat16", kernels, **UNROLLED), toks, S,
+              steps)
+    assert next(calls, None) is None
+    return got, ref_bf16, ref_f32

@@ -82,7 +82,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 74
+    assert int(out.stdout.strip().splitlines()[-1]) >= 80
 
 
 # ------------------------------------------------------------------ #
@@ -261,6 +261,13 @@ def test_serving_entry_points_default_to_the_card(no_cuda, capsys):
     with pytest.raises(RuntimeError):
         serve.main(["--arch", "rwkv6-1.6b", "--variant", "smoke"])
     model = build_model(rw, "cpu")
+    assert model.cfg.use_kernel is False and model.device.type == "cpu"
+    ds = get_config("deepseek-v3-671b", "smoke")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(ds)
+    with pytest.raises(RuntimeError):
+        serve.main(["--arch", "deepseek-v3-671b", "--variant", "smoke"])
+    model = build_model(ds, "cpu")
     assert model.cfg.use_kernel is False and model.device.type == "cpu"
 
 

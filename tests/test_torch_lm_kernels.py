@@ -833,6 +833,30 @@ def test_ctypes_binding_matches_the_c_signature(module, symbol):
     assert [kind(p) for p in params] == mod.ARGTYPES
 
 
+
+def test_bf16_instance_binding_matches_the_c_signature():
+    """The KD-forcing entry point's ``argtypes`` follow its ``extern "C"``
+    signature, the instance query takes nothing, and ``BF16_INSTANCES``
+    are the compiled ones."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    sig = re.search(r'extern "C" int flash_attention_launch_bf16_instance'
+                    r"\(([^)]*)\)", src)
+    params = [p.strip() for p in sig.group(1).split(",")]
+    want = {"long long": ctypes.c_longlong, "float": ctypes.c_float,
+            "int": ctypes.c_int}
+    kinds = [ctypes.c_void_p if "*" in p else
+             want[p.rsplit(" ", 1)[0].replace("const ", "")] for p in params]
+    assert kinds == fa.INSTANCE_ARGTYPES
+    assert re.search(r'extern "C" int flash_attention_last_instance\(void\)',
+                     src)
+    assert fa.BF16_INSTANCES == tuple(int(n) for n in re.findall(
+        r"case (\d+): return tc::launch<\1>", src))
+
 # ------------------------------ the card ------------------------------ #
 CARD_ATTN_CASES = [
     # (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
@@ -898,6 +922,68 @@ def test_flash_attention_bf16_kernel_matches_f32_kernel_on_card(cuda, case):
     assert (got.float() - want).abs().max() <= tol
     assert _bf16_gap(got, want) <= BF16_GAP_C
 
+
+
+# MLA's q-k width 192 (128 + 64 RoPE), served by the KD = 12 instance:
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset)
+CARD_MLA_CASES = [
+    (2, 300, 300, 8, 8, 192, True, 0, 0),         # the serve path's form
+    (2, 100, 300, 12, 4, 192, True, 256, 200),    # GQA, window, ragged
+    (1, 77, 130, 4, 4, 192, False, 0, 0),         # not causal, ragged
+    (1, 70, 80, 4, 2, 192, True, 0, -20),         # rows before every key
+    (2, 1, 200, 8, 8, 192, True, 0, 199),         # Sq = 1
+    (1, 2048, 2048, 4, 4, 192, True, 0, 0),       # the serve path's rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_MLA_CASES)
+def test_flash_attention_kd12_instance_on_card(cuda, case):
+    """D = 192 runs the KD = 12 instance (no zero columns): held to the
+    plain version in bf16 (2^-6 of max |v|), to the float32 plain route
+    element by element (BF16_GAP_C), and to the padded KD = 16 instance
+    on the same inputs, which computes the same sums plus exact zeros (a
+    zero column adds 0 to every score and is never stored): equal bit for
+    bit."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, Hq, Hkv, D, causal, window, qo = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case[:6]) + 2)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.last_instance() == 12
+    padded = fa.flash_attention_cuda(q, k, v, instance=16, **kw)
+    torch.cuda.synchronize()
+    assert fa.last_instance() == 16
+    assert torch.equal(got, padded)
+    want = ops.plain_attention(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max() <= \
+        2 ** -6 * v.float().abs().max()
+    want = ops.plain_attention(q.float(), k.float(), v.float(), **kw)
+    assert _bf16_gap(got, want) <= BF16_GAP_C
+
+
+@pytest.mark.cuda
+def test_flash_attention_instance_is_refused_where_it_does_not_fit(cuda):
+    """Each head width runs the narrowest instance that holds it but for
+    112 and 192, which run unpadded; a forced instance must hold D and be
+    bfloat16."""
+    from repro_torch.kernels import flash_attention as fa
+    for D, kd in ((8, 1), (24, 2), (48, 4), (64, 4), (112, 7), (128, 8),
+                  (144, 16), (192, 12), (200, 16), (256, 16)):
+        q = torch.zeros((1, 8, 2, D), device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention_cuda(q, q, q)
+        torch.cuda.synchronize()
+        assert fa.last_instance() == kd, D
+    for bad in (8, 7, 3):
+        with pytest.raises(ValueError, match="instance"):
+            fa.flash_attention_cuda(q[..., :192].contiguous(),
+                                    q[..., :192].contiguous(),
+                                    q[..., :192].contiguous(), instance=bad)
+    with pytest.raises(ValueError, match="instance"):
+        fa.flash_attention_cuda(q.float(), q.float(), q.float(), instance=16)
 
 def _card_ssd_inputs(cuda, case, dtype, seed):
     """x, dt, A, B, C (x, B, C in ``dtype``) and an initial state or None

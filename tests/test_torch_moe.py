@@ -205,55 +205,11 @@ def test_mixtral_smoke_matches_reference_float32(prompt, kernels, request):
     assert L == (32 if S > 32 else S + STEPS + 4)     # a ring past the window
 
 
-# the reference unrolled, so that its top_k sees each layer's values
-UNROLLED = {"scan_layers": False, "remat": False}
-
-
 def _pinned_bf16(monkeypatch, S: int, kernels: bool):
-    """(the port's bf16 run, the reference's bf16 run, the reference's
-    float32 run), every MoE layer of the two bf16 runs taking the experts
-    (ids and order) that the float32 run's ``jax.lax.top_k`` chose at that
-    call; gates are the run's own probabilities at those experts,
-    renormalised as ``moe_forward`` does."""
-    from repro_torch.models import moe as tmoe_mod
-    toks = TOKENS[:, :S + STEPS]
-    top_k, route = jax.lax.top_k, tmoe_mod._route
-    chosen = []
-
-    def recording(probs, k):
-        v, i = top_k(probs, k)
-        chosen.append(np.asarray(i))
-        return v, i
-
-    monkeypatch.setattr(jax.lax, "top_k", recording)
-    jm, params = lm.jax_model(ARCH, "float32", kernels, **UNROLLED)
-    ref_f32 = lm.run(jm, toks, S, STEPS, params)
-    assert len(chosen) == jm.cfg.n_layers * (2 + STEPS)
-
-    calls = iter(chosen)
-
-    def pinned_jax(probs, k):
-        i = jnp.asarray(next(calls))
-        return jnp.take_along_axis(probs, i, axis=-1), i
-
-    monkeypatch.setattr(jax.lax, "top_k", pinned_jax)
-    jm, params = lm.jax_model(ARCH, "bfloat16", kernels, **UNROLLED)
-    ref_bf16 = lm.run(jm, toks, S, STEPS, params)
-    monkeypatch.setattr(jax.lax, "top_k", top_k)
-
-    calls = iter(chosen)
-
-    def pinned_port(p, xt, cfg):
-        probs, _, _ = route(p, xt, cfg)
-        i = torch.from_numpy(next(calls).copy()).long()
-        v = probs.gather(-1, i)
-        return probs, v / torch.clamp(v.sum(-1, keepdim=True), min=1e-9), i
-
-    monkeypatch.setattr(tmoe_mod, "_route", pinned_port)
-    got = lm.run(lm.port_model(ARCH, "bfloat16", kernels, **UNROLLED),
-                 toks, S, STEPS)
-    assert next(calls, None) is None
-    return got, ref_bf16, ref_f32
+    """``_lm_parity.pinned_bf16`` of the mixtral smoke model on the first
+    ``S`` tokens and ``STEPS`` decode steps."""
+    return lm.pinned_bf16(monkeypatch, ARCH, TOKENS[:, :S + STEPS], S, STEPS,
+                          kernels)
 
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["oracles", "kernels"])

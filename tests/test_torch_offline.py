@@ -51,6 +51,31 @@ def test_fit_clusters_matches_reference(monkeypatch, n, batched, use_kernel):
     assert b.ch == pytest.approx(a.ch, rel=1e-4)
 
 
+
+@pytest.mark.parametrize("orders", [1, 9])
+def test_stacked_assign_planted_ties_take_the_first_index(orders):
+    """The batched sweeps' ``_assign_stacked`` keeps its twin's rule: a
+    point equally near two equal centroids of one model order takes the
+    lower slot.  Centroids 3 and 5 of every order repeat centroid 1, so
+    none may be labelled 3 or 5, and the labels equal the reference's
+    ``cluster_assign_ref`` on one order's centroids."""
+    import torch
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(4)
+    X = (rng.normal(size=(1000, 4)) * 2.0).astype(np.float32)
+    C = (rng.normal(size=(6, 4)) * 2.0).astype(np.float32)
+    C[3] = C[1]
+    C[5] = C[1]
+    lab = pc._assign_stacked(torch.from_numpy(X),
+                             torch.from_numpy(np.concatenate([C] * orders)),
+                             orders, 6).numpy()
+    assert lab.shape == (1000, orders)
+    assert (lab == 1).any()
+    assert not np.isin(lab, [3, 5]).any()
+    want = np.asarray(jref.cluster_assign_ref(X, C)[0])
+    np.testing.assert_array_equal(lab == 1, (want == 1)[:, None].repeat(
+        orders, 1))
+
 def test_fit_clusters_numpy_path_is_bit_equal():
     X = pn.sample_feature_logs(600, seed=4)
     for method in ("kmeans++", "hac"):

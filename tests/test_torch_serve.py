@@ -197,21 +197,22 @@ def test_load_reference_params_checks_names_and_shapes():
 def test_registry_has_the_ported_families_and_names_roadmap():
     """The registry holds the ported architectures (the hybrid zamba2-7b,
     rwkv6-1.6b, the dense minitron-4b, internlm2-20b, qwen2.5-32b and
-    llama3-405b, and the MoE mixtral-8x22b), each config equal to the
-    reference's field by field; any other id raises naming ROADMAP, and
-    ``Model`` refuses what is still unported: MLA, DeepSeek's
-    ``first_k_dense`` stack, audio codebooks and the vision stub."""
+    llama3-405b, and the MoE mixtral-8x22b and deepseek-v3-671b), each
+    config equal to the reference's field by field; any other id raises
+    naming ROADMAP, and ``Model`` refuses what is still unported: audio
+    codebooks and the vision stub."""
     assert all_archs() == ["zamba2-7b", "rwkv6-1.6b", "minitron-4b",
                            "internlm2-20b", "qwen2.5-32b", "llama3-405b",
-                           "mixtral-8x22b"]
+                           "mixtral-8x22b", "deepseek-v3-671b"]
     assert get_config("zamba2-7b", "full").n_layers == 81
     assert get_config("zamba2_7b", "smoke").dtype == torch.bfloat16
     assert get_config("rwkv6-1.6b", "full").n_layers == 24
     assert get_config("rwkv6_1_6b", "smoke").rwkv_chunk == 8
     assert get_config("minitron-4b", "full").n_kv_heads == 8
     assert get_config("mixtral_8x22b", "full").n_experts == 8
-    for arch in ("deepseek-v3-671b", "musicgen-large", "qwen2-vl-2b",
-                 "no-such-model"):
+    assert get_config("deepseek-v3-671b", "full").first_k_dense == 3
+    assert get_config("deepseek_v3_671b", "smoke").attn_type == "mla"
+    for arch in ("musicgen-large", "qwen2-vl-2b", "no-such-model"):
         with pytest.raises(ValueError, match="ROADMAP"):
             get_config(arch)
     from repro.configs import get_config as jget
@@ -225,9 +226,7 @@ def test_registry_has_the_ported_families_and_names_roadmap():
                         (arch, variant, f.name)
             assert ported.n_params_dense_est == ref_cfg.n_params_dense_est
     mixtral = get_config("mixtral-8x22b", "smoke")
-    for what, over in (("MLA", {"attn_type": "mla"}),
-                       ("first_k_dense", {"first_k_dense": 1}),
-                       ("codebooks", {"n_codebooks": 4, "family": "audio"}),
+    for what, over in (("codebooks", {"n_codebooks": 4, "family": "audio"}),
                        ("vision", {"vision_stub": True, "family": "vlm"})):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             Model(dataclasses.replace(mixtral, **over), "cpu")
