@@ -52,13 +52,24 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               16,384, top 2) and 8 of its 56 layers (the whole model is 281
               GB in bf16; its float32 check runs 2 layers) the same way; one
               prefill launches exactly 8 ``flash_attention``, decode none;
-11. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
+11. serve  -- musicgen-large, audio, at full width and depth (48 layers,
+              d_model 2048, 32 heads of 64, 4 EnCodec codebook streams of
+              2048 ids: prompts (8, 2048, 4), logits (8, 1, 4, 2048)) the
+              same way; one prefill launches exactly 48 ``flash_attention``
+              on the kernel's KD = 4 instance, decode none;
+12. serve  -- qwen2-vl-2b, vision-language, at full width and depth (28
+              layers, d_model 1536, 12 query heads over 2 kv heads of 128,
+              M-RoPE, QKV bias, vocab 151,936) the same way, its prefill
+              given 256 seeded patch embeddings in place of its first
+              positions (the vision stub); one prefill launches exactly 28
+              ``flash_attention`` on the KD = 8 instance, decode none;
+13. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
               tree on the card; rwkv6-1.6b's full weights saved to disk under
               its recommendation and under (1, 1, 1), restored to the card
               bit for bit, and one prefill through the restored model (24
               ``rwkv6``, logits equal to the original's); ``TokenPipeline``
               at the serve shape fed to the card;
-12. serve  -- deepseek-v3-671b, MLA and the first_k_dense stack, at full
+14. serve  -- deepseek-v3-671b, MLA and the first_k_dense stack, at full
               width (d_model 7168, 128 heads of 128 + 64 RoPE for q and k
               and 128 for v, latents of 512 + 64, 256 routed experts of 2048
               and one shared, top 8 by a sigmoid gate) and 5 of its 61
@@ -68,11 +79,11 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               all on the kernel's KD = 12 instance (D = 192 unpadded),
               decode none (MLA's absorbed decode is plain torch).
 
-Phases 3 to 12 are the main path: every kernel's launch count is set to
-0 just before each and read just after (phase 11: just around the restored
+Phases 3 to 14 are the main path: every kernel's launch count is set to
+0 just before each and read just after (phase 13: just around the restored
 model's prefill), and a kernel that the path did not launch fails the run.
 Phases 3 to 6 end with one more, profiled run of a fit, a fleet or a
-training, and phases 7-10 and 12 profile decode steps and a prefill, to
+training, and phases 7-12 and 14 profile decode steps and a prefill, to
 report how much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary, the card's name and power
@@ -106,9 +117,11 @@ TESTBED_NAMES = ("xsede", "didclab", "didclab-xsede")
 FLEET_N = 256               # fleet_scale's largest admission-controller fleet
 PARITY_N = 8                # its engine-parity and knowledge-service fleets
 SCORE_B, SCORE_P = 64, 16   # its batched-scoring shape
-# the port's LM families at full width: hybrid, RWKV6, dense GQA and MoE
-SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b", "minitron-4b", "mixtral-8x22b")
-MLA_ARCH = "deepseek-v3-671b"   # served after the checkpoint phase (12)
+# the port's LM families at full width: hybrid, RWKV6, dense GQA, MoE,
+# audio and vision-language
+SERVE_ARCHS = ("zamba2-7b", "rwkv6-1.6b", "minitron-4b", "mixtral-8x22b",
+               "musicgen-large", "qwen2-vl-2b")
+MLA_ARCH = "deepseek-v3-671b"   # served after the checkpoint phase (14)
 SERVE_BATCH, SERVE_PROMPT = 8, 2048
 SERVE_STEPS = 64            # greedy decode steps after the prefill
 # depth cuts, where the whole model does not fit one 80 GB card: mixtral's
@@ -697,15 +710,24 @@ def _attention_case(device, dtype, shape, causal: bool, window: int,
             "library_ms": library_ms, "instance": instance}
 
 
+def bf16_instance(D: int) -> int:
+    """The bf16 ``flash_attention`` instance that head width D takes: the
+    narrowest of the compiled widths that holds it."""
+    from repro_torch.kernels.flash_attention import BF16_INSTANCES
+    return min(kd for kd in BF16_INSTANCES if 16 * kd >= D)
+
+
 def phase_kernel_flash_attention(device) -> dict:
     """At the serve path's shape (zamba2-7b prefill: causal, D = 112) and at
     a GQA + window + q_offset case with ragged Sq and Sk, in bf16 and f32;
-    in bf16 also at the prefill shapes of the dense and MoE serve phases
-    (minitron-4b's 24 heads over 8 kv heads of 128, mixtral-8x22b's 48 over
-    8, causal) and of MLA (deepseek-v3-671b's 128 heads at q-k width 192,
-    causal: the KD = 12 instance, held to the padded KD = 16 one and timed
-    beside it), reported and not gated on time.  The row reported is the
-    zamba2 serve shape in bf16, the path's dtype."""
+    in bf16 also at the prefill shapes of the dense, MoE, audio and
+    vision-language serve phases (minitron-4b's 24 heads over 8 kv heads of
+    128, mixtral-8x22b's 48 over 8, musicgen-large's 32 heads of 64 on the
+    KD = 4 instance, qwen2-vl-2b's 12 over 2 of 128, causal) and of MLA
+    (deepseek-v3-671b's 128 heads at q-k width 192, causal: the KD = 12
+    instance, held to the padded KD = 16 one and timed beside it), each
+    gated to the instance its D takes, reported and not gated on time.  The
+    row reported is the zamba2 serve shape in bf16, the path's dtype."""
     import torch
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
     row = None
@@ -716,18 +738,19 @@ def phase_kernel_flash_attention(device) -> dict:
         row = row or r
         _attention_case(device, dtype, (2, 1000, 1500, 24, 8, 128), True,
                         256, 500, "GQA+window+offset, ragged", library=False)
-    for heads, label in ((24, "dense GQA shape (minitron-4b)"),
-                         (48, "MoE GQA shape (mixtral-8x22b)")):
-        _attention_case(device, torch.bfloat16,
-                        (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, heads, 8,
-                         128), True, 0, 0, label, library=True)
-    mla = _attention_case(device, torch.bfloat16,
-                          (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 128, 128,
-                           192), True, 0, 0, "MLA shape (deepseek-v3-671b)",
-                          library=True, padded=16)
-    check(mla["instance"] == 12, f"D = 192 ran the KD = {mla['instance']} "
-          "instance of flash_attention, not KD = 12")
-    del mla
+    for (hq, hkv, d), label, padded in (
+            ((24, 8, 128), "dense GQA shape (minitron-4b)", None),
+            ((48, 8, 128), "MoE GQA shape (mixtral-8x22b)", None),
+            ((32, 32, 64), "audio shape (musicgen-large)", None),
+            ((12, 2, 128), "VLM GQA shape (qwen2-vl-2b)", None),
+            ((128, 128, 192), "MLA shape (deepseek-v3-671b)", 16)):
+        r = _attention_case(device, torch.bfloat16,
+                            (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, hq, hkv,
+                             d), True, 0, 0, label, library=True,
+                            padded=padded)
+        check(r["instance"] == bf16_instance(d), f"D = {d} ran the KD = "
+              f"{r['instance']} instance of flash_attention, not KD = "
+              f"{bf16_instance(d)}")
     torch.cuda.empty_cache()
     row.pop("instance")
     return {"name": "flash_attention", "route": "cuda",
@@ -1487,7 +1510,8 @@ def lm_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     ``n_decode`` decode steps of ``cfg``'s model make: an RWKV6 layer runs
     ``rwkv6`` in both; a hybrid runs ``ssd_scan`` in each Mamba2 layer's
     prefill and ``flash_attention`` in each shared block's, and neither in
-    decode; a dense or MoE layer, of either of DeepSeek's stacks, runs
+    decode; a layer of the dense stack (the dense, MoE, audio and
+    vision-language families, either of DeepSeek's stacks) runs
     ``flash_attention`` in its prefill and none in decode (decode attention,
     MLA's absorbed form included, is plain torch, as in the reference)."""
     n = dict.fromkeys(LM_KERNELS, 0)
@@ -1518,10 +1542,12 @@ def _logit_gap(run, plain) -> tuple[list[float], float, float, float]:
     return errs, scale, agree, agree0
 
 
-def _check_on_activations(model, prompts, label: str) -> None:
-    """One prefill and one decode step with every kernel result held to its
-    plain version on the same inputs (``_checked_kernels``); fails on any
-    miss, and unless each launched exactly its ``lm_launches``."""
+def _check_on_activations(model, prompts, label: str,
+                          patch_embeds=None) -> None:
+    """One prefill (given ``patch_embeds``) and one decode step with every
+    kernel result held to its plain version on the same inputs
+    (``_checked_kernels``); fails on any miss, and unless each launched
+    exactly its ``lm_launches``."""
     import torch
     cfg = model.cfg
     errors: list = []
@@ -1531,7 +1557,7 @@ def _check_on_activations(model, prompts, label: str) -> None:
     cache = model.init_cache(prompts.shape[0], prompts.shape[1] + 2)
     with _checked_kernels(errors, worst_ssd, mla):
         c0 = _lm_counts(launch_counts())
-        model.prefill(prompts, cache)
+        model.prefill(prompts, cache, patch_embeds)
         c1 = _lm_counts(launch_counts())
         model.decode(prompts[:, -1:], cache)
         c2 = _lm_counts(launch_counts())
@@ -1635,9 +1661,23 @@ def phase_serve(device, arch: str) -> dict[str, int]:
         ops.plain_attention = plain
 
 
+def serve_patch_embeds(cfg, device):
+    """With the vision stub, ``cfg.n_patches`` seeded patch embeddings a
+    prompt, (8, n_patches, d_model) bf16 at the embedding table's scale
+    (0.02): the vision tower's output that ``src/repro/launch/shapes.py``
+    gives the reference's prefill.  None without the stub."""
+    import torch
+    if not cfg.vision_stub:
+        return None
+    g = torch.Generator(device=device).manual_seed(2)
+    return (0.02 * torch.randn((SERVE_BATCH, cfg.n_patches, cfg.d_model),
+                               generator=g, device=device)).bfloat16()
+
+
 def _serve(device, arch: str) -> dict[str, int]:
     """``arch`` at full width, and at full depth unless ``SERVE_LAYERS``
-    cuts it, on the card: 8 prompts of 2048 tokens, prefill, then 64 greedy
+    cuts it, on the card: 8 prompts of 2048 tokens (with the vision stub,
+    each prefill given ``serve_patch_embeds``), prefill, then 64 greedy
     decode steps through the kernels, timed and counted (exactly
     ``lm_launches``).  Then three checks against the plain route
     (``use_kernel=False``) on the same weights and prompts:
@@ -1678,15 +1718,16 @@ def _serve(device, arch: str) -> dict[str, int]:
           "the kernels by default")
     prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
                            device=device)
+    pe = serve_patch_embeds(cfg, device)
     n_tokens = SERVE_STEPS + 1          # the prefill's pick and 64 steps
     t0 = time.perf_counter()
-    warm = serve(model, prompts, 3)     # first use of each path
+    warm = serve(model, prompts, 3, patch_embeds=pe)  # first use of each path
     warm_s = time.perf_counter() - t0
     del warm
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    run = serve(model, prompts, n_tokens, keep_logits=True)
+    run = serve(model, prompts, n_tokens, patch_embeds=pe, keep_logits=True)
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     want = lm_launches(cfg, 1, SERVE_STEPS)
@@ -1697,16 +1738,18 @@ def _serve(device, arch: str) -> dict[str, int]:
         # the instance of the bf16 kernel that the run's last launch took
         from repro_torch.kernels import flash_attention as fa_mod
         inst = fa_mod.last_instance()
-        print(f"{tag} the bf16 flash_attention launches at D = "
-              f"{cfg.head_dim} ran the kernel's KD = {inst} instance (16 x "
-              f"{inst} columns)")
-        if cfg.attn_type == "mla":
-            check(inst == 12, f"MLA's D = {cfg.head_dim} ran the KD = {inst} "
-                  "instance of flash_attention, not KD = 12")
+        d = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+             if cfg.attn_type == "mla" else cfg.head_dim)
+        print(f"{tag} the bf16 flash_attention launches at D = {d} ran the "
+              f"kernel's KD = {inst} instance (16 x {inst} columns)")
+        check(inst == bf16_instance(d), f"D = {d} ran the KD = {inst} "
+              f"instance of flash_attention, not KD = {bf16_instance(d)}")
     logits = [run.prefill_logits] + run.decode_logits
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     check(all(bool(torch.isfinite(lg).all()) for lg in logits)
-          and run.prefill_logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
-          and run.tokens.shape == (SERVE_BATCH, n_tokens),
+          and run.prefill_logits.shape == (SERVE_BATCH, 1) + cb
+          + (cfg.vocab_size,)
+          and run.tokens.shape == (SERVE_BATCH, n_tokens) + cb,
           "the serve run's logits are not finite or not of the served shape")
     p50 = run.decode_p50_ms()
     print(f"{tag} {cfg.n_layers} layers{cut}, d_model {cfg.d_model}, "
@@ -1734,8 +1777,8 @@ def _serve(device, arch: str) -> dict[str, int]:
     print(f"{tag} profiled 4 decode steps: {busy_text(wall, dev)}; top "
           f"device ops: {top_text(ops_)}")
     wall, dev, ops_ = device_profile(lambda: model.prefill(
-        prompts, model.init_cache(SERVE_BATCH, n_tokens + SERVE_PROMPT + 4)),
-        top=None)
+        prompts, model.init_cache(SERVE_BATCH, n_tokens + SERVE_PROMPT + 4),
+        pe), top=None)
     ours = [op for op in ops_ if any(name in op[0] for name in LM_KERNELS)]
     print(f"{tag} profiled prefill: {busy_text(wall, dev)}; top device "
           f"ops: {top_text(ops_[:8])}; the port's kernels: {top_text(ours)}")
@@ -1743,7 +1786,7 @@ def _serve(device, arch: str) -> dict[str, int]:
     # 1. every launch of one prefill and one decode step against its plain
     #    version on the same activations (the serve path's real inputs, not
     #    random ones)
-    _check_on_activations(model, prompts, "bf16")
+    _check_on_activations(model, prompts, "bf16", pe)
 
     # 2. the bf16 routes end to end.  The reference's init gives stacked
     #    layer weights std 1/sqrt(n_layers) (zamba2-7b: 1/9), a high-gain
@@ -1757,7 +1800,7 @@ def _serve(device, arch: str) -> dict[str, int]:
     before = launch_counts()
     t0 = time.perf_counter()
     plain = serve(model, prompts, n_tokens, force=run.tokens,
-                  keep_logits=True)
+                  patch_embeds=pe, keep_logits=True)
     plain_s = time.perf_counter() - t0
     check(launch_counts() == before, "the plain route launched a kernel")
     errs, scale, agree, agree0 = _logit_gap(run, plain)
@@ -1780,8 +1823,9 @@ def _serve(device, arch: str) -> dict[str, int]:
     #    sqrt(launches) for the places such differences enter: the prefill's
     #    and the decode steps' launches (zamba2-7b: 94, all in the prefill;
     #    rwkv6-1.6b: 24 in each of the 9 calls; minitron-4b: 32,
-    #    mixtral-8x22b's 2 float32 layers: 2 and deepseek-v3-671b's 4: 4,
-    #    all in the prefill).
+    #    mixtral-8x22b's 2 float32 layers: 2, musicgen-large: 48,
+    #    qwen2-vl-2b: 28 and deepseek-v3-671b's 4: 4, all in the prefill).
+    #    With codebooks, the perturbed tables are the streams'.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=F32_LAYERS
                                 .get(arch, cfg.n_layers))
     if cfg32.n_layers < cfg.n_layers:
@@ -1792,22 +1836,25 @@ def _serve(device, arch: str) -> dict[str, int]:
               f"{cfg.n_layers} layers{split} (float32 doubles a layer's "
               f"bytes)")
     model = build_model(cfg32, device, seed=0)
-    _check_on_activations(model, prompts, "float32")
+    _check_on_activations(model, prompts, "float32", pe)
     steps32 = 8
     t0 = time.perf_counter()
-    run = serve(model, prompts, steps32 + 1, keep_logits=True)
+    run = serve(model, prompts, steps32 + 1, patch_embeds=pe,
+                keep_logits=True)
     k_s = time.perf_counter() - t0
     model.cfg = dataclasses.replace(model.cfg, use_kernel=False)
     plain = serve(model, prompts, steps32 + 1, force=run.tokens,
-                  keep_logits=True)
+                  patch_embeds=pe, keep_logits=True)
     errs, scale, agree, agree0 = _logit_gap(run, plain)
-    # the model's last use: the table is perturbed in place, not restored
+    # the model's last use: the table the prompts read (with codebooks, the
+    # streams' tables) is perturbed in place, not restored
+    table = model.embed_cb if cfg.n_codebooks else model.embedding
     g = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
-        model.embedding.mul_(1 + 1e-6 * torch.randn(
-            model.embedding.shape, generator=g, device=device))
+        table.mul_(1 + 1e-6 * torch.randn(table.shape, generator=g,
+                                          device=device))
     nudged, _ = model.prefill(prompts, model.init_cache(SERVE_BATCH,
-                                                        SERVE_PROMPT + 1))
+                                                        SERVE_PROMPT + 1), pe)
     growth = ((nudged - plain.prefill_logits).abs().max().item()
               / plain.prefill_logits.abs().max().item() / 1e-6)
     print(f"{tag} float32 plain prefill with the embeddings perturbed by "

@@ -9,9 +9,16 @@
         --variant full --batch 8 --prompt-len 2048 --tokens 65
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
         --variant full --batch 8 --prompt-len 2048 --tokens 65
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
+        --variant full --batch 8 --prompt-len 2048 --tokens 65
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \\
+        --variant full --batch 8 --prompt-len 2048 --tokens 65
 
 ``--arch`` takes every registered id (``repro_torch.configs.all_archs``):
-the hybrid, RWKV6, dense and MoE families.  There is no depth option, as
+the hybrid, RWKV6, dense, MoE, audio and vision-language families.  An
+audio model's prompts and picks are (B, S, CB) codebook ids.  The CLI, like
+the reference's launcher, gives a vision-language model no patch
+embeddings; ``serve`` takes them.  There is no depth option, as
 the reference's launcher has none: a full model that does not fit one card
 (mixtral-8x22b, llama3-405b) is served cut in depth through the library,
 as ``chip_smoke.py`` does with ``dataclasses.replace(cfg, n_layers=8)``.
@@ -36,11 +43,12 @@ from repro_torch.models.model import Model, build_model
 
 @dataclasses.dataclass
 class ServeResult:
-    """One batch served: greedy ``tokens`` (B, n) (the first from the
-    prefill), host wall times of the prefill and of each decode step (each
-    ending in a device synchronise), the decode cache as the last step left
-    it, and, when kept, the prefill's logits (B, 1, V) and each decode
-    step's (B, 1, V)."""
+    """One batch served: greedy ``tokens`` (B, n), or (B, n, CB) with
+    codebooks (the first from the prefill), host wall times of the prefill
+    and of each decode step (each ending in a device synchronise), the
+    decode cache as the last step left it, and, when kept, the prefill's
+    logits (B, 1, V) and each decode step's (B, 1, V) ((B, 1, CB, V) with
+    codebooks)."""
     tokens: torch.Tensor
     prefill_ms: float
     decode_ms: list[float]
@@ -62,33 +70,38 @@ def _sync(device: torch.device) -> None:
 
 def make_prompts(cfg, batch: int, prompt_len: int, *, seed: int = 0,
                  device=None) -> torch.Tensor:
-    """(batch, prompt_len) int64 token ids, uniform over the vocabulary,
-    from a seeded generator on ``device``."""
+    """(batch, prompt_len) int64 token ids, (batch, prompt_len, CB) with
+    codebooks, uniform over the vocabulary, from a seeded generator on
+    ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                         generator=gen, device=dev)
+    shape = (batch, prompt_len) + ((cfg.n_codebooks,) if cfg.n_codebooks
+                                   else ())
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
 
 
 def serve(model: Model, prompts: torch.Tensor, n_tokens: int, *,
           force: torch.Tensor | None = None,
+          patch_embeds: torch.Tensor | None = None,
           keep_logits: bool = False) -> ServeResult:
-    """Prefill ``prompts`` (B, S), then decode greedily until ``n_tokens``
-    tokens (the prefill's included) are out: ``n_tokens - 1`` decode steps.
+    """Prefill ``prompts`` (B, S), or (B, S, CB) with codebooks, then
+    decode greedily until ``n_tokens`` tokens (the prefill's included) are
+    out: ``n_tokens - 1`` decode steps.  ``patch_embeds`` (B, n, d) go to
+    the prefill (``Model.embed``).
 
-    With ``force`` (B, n_tokens), decode step j is fed ``force[:, j]``
-    instead of this run's own pick (teacher forcing); ``tokens`` still
-    holds this run's own greedy picks.
+    With ``force`` (B, n_tokens) or (B, n_tokens, CB), decode step j is fed
+    ``force[:, j]`` instead of this run's own pick (teacher forcing);
+    ``tokens`` still holds this run's own greedy picks.
     """
     dev = prompts.device
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
     cache = model.init_cache(B, S + n_tokens + 4)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, cache)
+    logits, cache = model.prefill(prompts, cache, patch_embeds)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    tok = torch.argmax(logits, dim=-1)                   # (B, 1)
+    tok = torch.argmax(logits, dim=-1)                   # (B, 1[, CB])
     picks, lat, step_logits = [tok], [], []
     for j in range(n_tokens - 1):
         feed = tok if force is None else force[:, j:j + 1]

@@ -1,3 +1,4 @@
-"""The LM stack of the port: the hybrid Mamba2 + shared-attention family
-(Zamba2) and the RWKV6 family, inference only.  Other families wait in
-ROADMAP.md."""
+"""The LM stack of the port, inference only: the hybrid Mamba2 +
+shared-attention family (Zamba2), RWKV6, the dense and MoE families (GQA
+or MLA attention), the audio family (codebook streams) and the
+vision-language family (M-RoPE, the vision stub)."""

@@ -1,6 +1,7 @@
 """Attention blocks with prefill and decode paths, as in
 ``repro.models.attention``: grouped-query attention (GQA, optional sliding
-window) and DeepSeek-V3's multi-head latent attention (MLA).
+window, RoPE or Qwen2-VL's M-RoPE) and DeepSeek-V3's multi-head latent
+attention (MLA).
 
 Prefill goes through ``kernels.ops.flash_attention`` (the hand-written
 CUDA kernel on the card) when ``cfg.use_kernel`` is set, else through the
@@ -24,7 +25,7 @@ from torch import nn
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
 from repro_torch.models.params import InitCtx
 
 
@@ -46,8 +47,6 @@ class GQA(nn.Module):
 
 
 def gqa_init(cfg: ModelConfig, ctx: InitCtx) -> GQA:
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE waits for qwen2-vl (ROADMAP.md)")
     return GQA(cfg, ctx)
 
 
@@ -64,8 +63,12 @@ def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig,
         q = q + p.bq[None, None]
         k = k + p.bk[None, None]
         v = v + p.bv[None, None]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:                   # positions (3, B, S)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

@@ -1,8 +1,8 @@
 """Model configuration schema, the field set of the JAX package's
-``ModelConfig``.  The port runs the ``hybrid`` (and plain ``ssm``) family,
-RWKV6 (``rwkv``) and the ``dense`` and ``moe`` families with GQA attention;
-the other families' fields are kept so a configuration reads the same in
-both packages."""
+``ModelConfig``, covering its ten architectures: the ``hybrid`` (and plain
+``ssm``) family, RWKV6 (``rwkv``), the ``dense`` and ``moe`` families (GQA
+or MLA attention), ``audio`` (codebook streams) and ``vlm`` (M-RoPE, the
+vision stub)."""
 from __future__ import annotations
 
 import dataclasses

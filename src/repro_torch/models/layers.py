@@ -1,6 +1,5 @@
-"""Shared neural building blocks: RMSNorm, RoPE and SwiGLU, as the JAX
-package computes them (``repro.models.layers``).  M-RoPE waits for
-qwen2-vl (ROADMAP.md)."""
+"""Shared neural building blocks: RMSNorm, RoPE, Qwen2-VL's M-RoPE and
+SwiGLU, as the JAX package computes them (``repro.models.layers``)."""
 from __future__ import annotations
 
 import functools
@@ -37,11 +36,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     D = x.shape[-1]
     inv = _inv_freq(D, float(theta), x.device)
     ang = positions[..., None].float() * inv                   # (B, S, D/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by the angles ang (B, S, D/2) in float32,
+    rounded once to x's dtype."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: tuple[int, int, int], device: torch.device
+                 ) -> torch.Tensor:
+    """The position stream (0 t, 1 h, 2 w) of each of the D/2 frequency
+    slots, on ``device``, made once."""
+    return torch.tensor(np.repeat(np.arange(3), sections), dtype=torch.long,
+                        device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions3: (3, B, S)
+    temporal/height/width position ids.  The D/2 frequency slots are split
+    into ``sections`` (t, h, w), and each slot rotates by its section's
+    position stream.  Text tokens carry equal t/h/w ids, which reduces it
+    to ``apply_rope``."""
+    D = x.shape[-1]
+    assert sum(sections) == D // 2, (sections, D)
+    inv = _inv_freq(D, float(theta), x.device)                 # (D/2,)
+    sec = _section_ids(tuple(sections), x.device)              # (D/2,)
+    ang = positions3[..., None].float() * inv                  # (3, B, S, D/2)
+    # slot j takes stream sec[j] (the reference's take_along_axis, axis 0)
+    ang = torch.gather(ang, 0, sec.expand(1, *ang.shape[1:]))[0]
+    return _rotate(x, ang)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -6,14 +6,18 @@ inference only: ``forward``, ``prefill`` and ``decode`` as in
 ``repro.models.model.Model``.  Attention is GQA or, with ``attn_type``
 "mla", DeepSeek-V3's multi-head latent attention; a MoE config with
 ``first_k_dense`` runs that many dense-FFN layers (``dense_layers``) before
-its MoE ``layers``, as the reference does.
+its MoE ``layers``, as the reference does.  The audio family (MusicGen)
+runs the dense stack over ``n_codebooks`` token streams, whose embeddings
+are summed and which each get their own logits; the vision-language family
+(Qwen2-VL) runs it with M-RoPE over (3, B, S) position ids and takes
+precomputed patch embeddings in place of its first positions (the vision
+tower is a stub, as in the reference).
 
 The layers are ``nn.Module``s run in a Python loop (the reference scans a
 stacked tree); parameters keep the reference's names, so
 ``params.load_reference_params`` carries a JAX parameter tree over.  The
 decode cache keeps the reference's stacked layout, and ``prefill`` and
-``decode`` update it in place and return it.  Audio codebooks and the
-vision stub raise and wait in ROADMAP.md.
+``decode`` update it in place and return it.
 """
 from __future__ import annotations
 
@@ -99,16 +103,10 @@ def _at(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
 
 
-def _missing(cfg: ModelConfig) -> list[str]:
-    """What of ``cfg`` the port does not have yet."""
-    return [what for what, needed in (
-        ("audio codebooks", cfg.n_codebooks),
-        ("the vision stub", cfg.vision_stub)) if needed]
-
-
 class Model(nn.Module):
     """A hybrid, plain Mamba2, RWKV6, dense or MoE (DeepSeek's MLA and
-    first_k_dense stack included) language model on
+    first_k_dense stack included), audio (codebook streams) or
+    vision-language (M-RoPE, vision stub) model on
     ``device`` (default: the card; raises without one unless
     ``device="cpu"``).  Parameters are allocated uninitialised; ``init``
     fills them from a seed, and ``params.load_reference_params`` from the
@@ -117,24 +115,25 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        missing = _missing(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} not ported to repro_torch; "
-                "ROADMAP.md, queue 1, lists where it waits")
         dev = resolve_device(device)
         cfg = dataclasses.replace(
             cfg, use_kernel=resolve_use_kernel(cfg.use_kernel, dev))
         self.cfg = cfg
         self.device = dev
         ctx = InitCtx(cfg.dtype, dev)
-        # the reference's ``embed`` leaf (``embed`` is the method here)
+        # the reference's ``embed`` leaf (``embed`` is the method here);
+        # with codebooks it and ``head`` are kept unread, as the reference
+        # keeps them
         self.embedding = ctx.param("embed", (cfg.vocab_size, cfg.d_model),
                                    scale=0.02)
         self.ln_f = ctx.param("ln_f", (cfg.d_model,), init="ones")
         if not cfg.tie_embeddings:
             self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
                                   scale=0.02)
+        if cfg.n_codebooks:
+            CB, V, d = cfg.n_codebooks, cfg.vocab_size, cfg.d_model
+            self.embed_cb = ctx.param("embed_cb", (CB, V, d), scale=0.02)
+            self.head_cb = ctx.param("head_cb", (CB, d, V), scale=0.02)
         # each stack's leaves take std 1/sqrt(that stack's depth)
         n = cfg.n_layers - self._first_dense
         stack = InitCtx(cfg.dtype, dev, stack=n)
@@ -161,18 +160,42 @@ class Model(nn.Module):
         return self
 
     # --------------------------- embedding ---------------------------- #
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens]
+    def embed(self, tokens: torch.Tensor,
+              patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens (B, S), or (B, S, CB) with codebooks: the CB streams'
+        embeddings summed in stream order.  With the vision stub,
+        ``patch_embeds`` (B, n, d) replace the first n positions."""
+        cfg = self.cfg
+        if cfg.n_codebooks:
+            x = self.embed_cb[0][tokens[..., 0]]
+            for c in range(1, cfg.n_codebooks):
+                x = x + self.embed_cb[c][tokens[..., c]]
+        else:
+            x = self.embedding[tokens]
+        if cfg.vision_stub and patch_embeds is not None:
+            n = patch_embeds.shape[1]
+            if n > x.shape[1]:
+                raise ValueError(f"{n} patch embeddings do not fit a sequence "
+                                 f"of {x.shape[1]} positions")
+            x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+        return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
-        head = self.embedding.T if self.cfg.tie_embeddings else self.head
+        """(B, S, V), or (B, S, CB, V) with codebooks (one head each)."""
+        cfg = self.cfg
+        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        if cfg.n_codebooks:     # einsum('bsd,cdv->bscv'), a product a stream
+            y = x.flatten(0, 1) @ self.head_cb                # (CB, B*S, V)
+            return y.permute(1, 0, 2).unflatten(0, x.shape[:2])
+        head = self.embedding.T if cfg.tie_embeddings else self.head
         return x @ head
 
     def _positions(self, tokens: torch.Tensor, offset: int = 0):
+        """(B, S) position ids; (3, B, S) text-like ones under M-RoPE."""
         B, S = tokens.shape[0], tokens.shape[1]
         pos = torch.arange(S, device=tokens.device)[None, :] + offset
-        return pos.expand(B, S)
+        pos = pos.expand(B, S)
+        return pos[None].expand(3, B, S) if self.cfg.mrope else pos
 
     @property
     def _dense(self) -> bool:
@@ -197,12 +220,15 @@ class Model(nn.Module):
 
     # ----------------------------- forward ----------------------------- #
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor,
+                patch_embeds: torch.Tensor | None = None):
         """tokens (B, S) -> (logits (B, S, V), aux): the reference's
-        training forward, without autograd.  ``aux`` is the MoE load-balance
-        loss summed over the layers (0.0 without experts)."""
+        training forward, without autograd.  With codebooks tokens are
+        (B, S, CB) and logits (B, S, CB, V); ``patch_embeds`` as in
+        ``embed``.  ``aux`` is the MoE load-balance loss summed over the
+        layers (0.0 without experts)."""
         cfg = self.cfg
-        x = self.embed(tokens)
+        x = self.embed(tokens, patch_embeds)
         positions = self._positions(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self._dense:
@@ -283,13 +309,15 @@ class Model(nn.Module):
 
     # ----------------------------- prefill ----------------------------- #
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: dict):
+    def prefill(self, tokens: torch.Tensor, cache: dict,
+                patch_embeds: torch.Tensor | None = None):
         """Full-sequence forward that also fills the decode cache (in
-        place).  Returns (last-position logits (B, 1, V), cache).  An
-        RWKV6 prefill starts from zero shift and WKV states whatever the
-        cache holds, as the reference's does."""
+        place).  Returns (last-position logits (B, 1, V), or (B, 1, CB, V)
+        with codebooks, cache); tokens and ``patch_embeds`` as in
+        ``forward``.  An RWKV6 prefill starts from zero shift and WKV
+        states whatever the cache holds, as the reference's does."""
         cfg = self.cfg
-        x = self.embed(tokens)
+        x = self.embed(tokens, patch_embeds)
         positions = self._positions(tokens)
         layers = cache["layers"]
         if cfg.rwkv:
@@ -319,8 +347,9 @@ class Model(nn.Module):
     # ------------------------------ decode ----------------------------- #
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: dict):
-        """Single-token decode step.  tokens: (B, 1).  Returns (logits
-        (B, 1, V), cache), the cache updated in place."""
+        """Single-token decode step.  tokens: (B, 1), or (B, 1, CB) with
+        codebooks.  Returns (logits (B, 1, V) or (B, 1, CB, V), cache), the
+        cache updated in place."""
         cfg = self.cfg
         x = self.embed(tokens)
         layers = cache["layers"]
@@ -333,6 +362,8 @@ class Model(nn.Module):
             # a copy: the first attention layer bumps len in place
             pos = attn_cache["len"][0, 0].clone()
             positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+            if cfg.mrope:
+                positions = positions[None].expand(3, x.shape[0], 1)
         if self._dense:
             for name in self._dense_stacks():
                 for i, layer in enumerate(getattr(self, name)):

@@ -1,6 +1,6 @@
 """Shared helpers of the parity tests that hold the port's attention-stack
-language models (the dense and MoE families, DeepSeek's MLA included) to
-the JAX package's.
+language models (the dense and MoE families, DeepSeek's MLA included, and
+the audio and vision-language families) to the JAX package's.
 
 A model is built on each side from one set of weights: the reference's
 ``Model.init`` draws them and ``params.load_reference_params`` carries them
@@ -54,25 +54,28 @@ def f32(x):
             else np.asarray(jnp.asarray(x).astype(jnp.float32)))
 
 
-def run(model, tokens: np.ndarray, S: int, steps: int, params=None) -> dict:
-    """forward logits and aux on all of ``tokens``, prefill logits on the
-    first ``S``, ``steps`` teacher-forced decode logits on the rest, and
-    the cache after them, as float32 numpy (``len`` as int32), from either
-    package (the JAX one when ``params`` is given).  The cache's entries of
-    ``layers`` keep their names (``k``, ``v``, ``len``; MLA: ``ckv``,
-    ``krope``, ``len``), those of another stack take its name as a prefix
-    (``dense_layers.ckv``)."""
+def run(model, tokens: np.ndarray, S: int, steps: int, params=None,
+        patch_embeds: np.ndarray | None = None) -> dict:
+    """forward logits and aux on all of ``tokens`` ((B, S) or, with
+    codebooks, (B, S, CB)), prefill logits on the first ``S``, ``steps``
+    teacher-forced decode logits on the rest, and the cache after them, as
+    float32 numpy (``len`` as int32), from either package (the JAX one when
+    ``params`` is given).  ``patch_embeds`` (B, n, d) go to the forward and
+    the prefill.  The cache's entries of ``layers`` keep their names (``k``,
+    ``v``, ``len``; MLA: ``ckv``, ``krope``, ``len``), those of another stack
+    take its name as a prefix (``dense_layers.ckv``)."""
     B = tokens.shape[0]
     jax_side = params is not None
     arr = jnp.asarray if jax_side else torch.from_numpy
+    pe = None if patch_embeds is None else arr(patch_embeds)
     if jax_side:
-        fwd, aux = model.forward(params, arr(tokens))
+        fwd, aux = model.forward(params, arr(tokens), pe)
         cache, _ = model.init_cache(B, S + steps + 4)
-        lg, cache = model.prefill(params, arr(tokens[:, :S]), cache)
+        lg, cache = model.prefill(params, arr(tokens[:, :S]), cache, pe)
     else:
-        fwd, aux = model.forward(arr(tokens))
+        fwd, aux = model.forward(arr(tokens), pe)
         cache = model.init_cache(B, S + steps + 4)
-        lg, cache = model.prefill(arr(tokens[:, :S]), cache)
+        lg, cache = model.prefill(arr(tokens[:, :S]), cache, pe)
     out = {"forward": f32(fwd), "aux": float(aux), "prefill": f32(lg)}
     for j in range(steps):
         t = arr(tokens[:, S + j:S + j + 1])
@@ -161,15 +164,21 @@ def prefill_decode_consistency(arch: str, n_decode: int = 3) -> None:
     routes differ only in the order of sums (and the smoke MoE's capacity
     drops nothing), and a position read as a view of the first layer's
     ``len``, which roped every later layer at pos + 1, must fail it.
-    ``len`` counts every token in every layer of every stack."""
+    ``len`` counts every token in every layer of every stack.  Tokens are
+    (B, S, CB) with codebooks; with the vision stub, seeded patch
+    embeddings go to the forward and the prefill."""
     cfg = dataclasses.replace(get_config(arch, "smoke"), dtype=torch.float32)
     model = build_model(cfg, "cpu", seed=1)
     S = 12
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, S + n_decode)))
-    full, _ = model.forward(toks)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size,
+        (2, S + n_decode) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())))
+    pe = (torch.from_numpy(patch_embeds(rng, 2, cfg))
+          if cfg.vision_stub else None)
+    full, _ = model.forward(toks, pe)
     cache = model.init_cache(2, S + n_decode + 2)
-    lg_pre, cache = model.prefill(toks[:, :S], cache)
+    lg_pre, cache = model.prefill(toks[:, :S], cache, pe)
     tol = 1e-4 * max(float(full.abs().max()), 1.0)
     assert float((lg_pre - full[:, S - 1:S]).abs().max()) < tol
     for j in range(n_decode):
@@ -177,6 +186,13 @@ def prefill_decode_consistency(arch: str, n_decode: int = 3) -> None:
         assert float((lg - full[:, S + j:S + j + 1]).abs().max()) < tol, j
     lens = torch.cat([stack["len"].flatten() for stack in cache.values()])
     assert lens.tolist() == [S + n_decode] * cfg.n_layers
+
+
+def patch_embeds(rng: np.random.Generator, batch: int, cfg) -> np.ndarray:
+    """(batch, cfg.n_patches, d_model) float32 patch embeddings at the
+    embedding table's scale, 0.02."""
+    return rng.normal(0.0, 0.02, (batch, cfg.n_patches, cfg.d_model)
+                      ).astype(np.float32)
 
 
 # the reference unrolled, so that its top_k sees each layer's values

@@ -195,15 +195,16 @@ def test_load_reference_params_checks_names_and_shapes():
 
 
 def test_registry_has_the_ported_families_and_names_roadmap():
-    """The registry holds the ported architectures (the hybrid zamba2-7b,
-    rwkv6-1.6b, the dense minitron-4b, internlm2-20b, qwen2.5-32b and
-    llama3-405b, and the MoE mixtral-8x22b and deepseek-v3-671b), each
-    config equal to the reference's field by field; any other id raises
-    naming ROADMAP, and ``Model`` refuses what is still unported: audio
-    codebooks and the vision stub."""
+    """The registry holds all ten of the reference's architectures (the
+    hybrid zamba2-7b, rwkv6-1.6b, the dense minitron-4b, internlm2-20b,
+    qwen2.5-32b and llama3-405b, the MoE mixtral-8x22b and
+    deepseek-v3-671b, the audio musicgen-large and the vision-language
+    qwen2-vl-2b), each config equal to the reference's field by field,
+    ``n_params_dense_est`` included; an unknown id raises."""
     assert all_archs() == ["zamba2-7b", "rwkv6-1.6b", "minitron-4b",
                            "internlm2-20b", "qwen2.5-32b", "llama3-405b",
-                           "mixtral-8x22b", "deepseek-v3-671b"]
+                           "mixtral-8x22b", "deepseek-v3-671b",
+                           "musicgen-large", "qwen2-vl-2b"]
     assert get_config("zamba2-7b", "full").n_layers == 81
     assert get_config("zamba2_7b", "smoke").dtype == torch.bfloat16
     assert get_config("rwkv6-1.6b", "full").n_layers == 24
@@ -212,10 +213,13 @@ def test_registry_has_the_ported_families_and_names_roadmap():
     assert get_config("mixtral_8x22b", "full").n_experts == 8
     assert get_config("deepseek-v3-671b", "full").first_k_dense == 3
     assert get_config("deepseek_v3_671b", "smoke").attn_type == "mla"
-    for arch in ("musicgen-large", "qwen2-vl-2b", "no-such-model"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            get_config(arch)
+    assert get_config("musicgen-large", "full").n_codebooks == 4
+    assert get_config("qwen2_vl_2b", "full").mrope_sections == (16, 24, 24)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("no-such-model")
+    from repro.configs import ALIASES as JALIASES
     from repro.configs import get_config as jget
+    assert sorted(all_archs()) == sorted(JALIASES)
     for arch in all_archs():
         for variant in ("full", "smoke"):
             ported = get_config(arch, variant)
@@ -225,11 +229,6 @@ def test_registry_has_the_ported_families_and_names_roadmap():
                     assert getattr(ported, f.name) == getattr(ref_cfg, f.name), \
                         (arch, variant, f.name)
             assert ported.n_params_dense_est == ref_cfg.n_params_dense_est
-    mixtral = get_config("mixtral-8x22b", "smoke")
-    for what, over in (("codebooks", {"n_codebooks": 4, "family": "audio"}),
-                       ("vision", {"vision_stub": True, "family": "vlm"})):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            Model(dataclasses.replace(mixtral, **over), "cpu")
 
 
 def test_serve_runs_end_to_end_on_the_cpu(capsys):
