@@ -77,18 +77,37 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               parameters; its float32 check runs the 3 dense and 1 MoE) the
               same way; one prefill launches exactly 5 ``flash_attention``,
               all on the kernel's KD = 12 instance (D = 192 unpadded),
-              decode none (MLA's absorbed decode is plain torch).
+              decode none (MLA's absorbed decode is plain torch);
+15. train  -- qwen2-vl-2b whole (1.78 B parameters in bf16, float32
+              master, bf16 moments) trained through
+              ``repro_torch.train.loop.Trainer``: 12 steps of 8 x 1024
+              tokens in 2 microbatches with remat, on 2 seeded batches
+              repeated (256 seeded patch embeddings a row), warmup 3; each
+              step launches exactly 112 ``flash_attention`` (2 microbatches
+              x 28 layers, forward and recompute; the backward is the plain
+              version's vjp), all on KD = 8, and the loss must fall; every
+              launch of a microbatch's forward and backward held to its
+              plain version; one float32 step at 4 layers on the kernel
+              route, each launch held to its plain version, and its loss
+              and gradients to the plain route's within the growth
+              measured in the run times an a-priori launch difference,
+              a gate that bf16-rounded kernel outputs must fail; then one
+              bf16 step each of rwkv6-1.6b whole (48 ``rwkv6``) and
+              zamba2-7b at full width and 6 of its 81 layers (12
+              ``ssd_scan``, 2 ``flash_attention``), with the same gates.
 
-Phases 3 to 14 are the main path: every kernel's launch count is set to
+Phases 3 to 15 are the main path: every kernel's launch count is set to
 0 just before each and read just after (phase 13: just around the restored
-model's prefill), and a kernel that the path did not launch fails the run.
-Phases 3 to 6 end with one more, profiled run of a fit, a fleet or a
-training, and phases 7-12 and 14 profile decode steps and a prefill, to
-report how much of the wall time the card spent running kernels.  Before phase 3 a
+model's prefill; phase 15: around each timed train step), and a kernel
+that the path did not launch fails the run.  Phases 3 to 6 end with one
+more, profiled run of a fit, a fleet or a training, phases 7-12 and 14
+profile decode steps and a prefill, and phase 15 a train step, to report
+how much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
-The last lines are a JSON ``kernels`` summary, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  The script needs a CUDA card
-and the checkout's ``src/`` beside it.
+The last lines are a JSON ``kernels`` summary (``launches`` over the whole
+main path, ``train_launches`` those of phase 15's timed steps), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
+script needs a CUDA card and the checkout's ``src/`` beside it.
 """
 from __future__ import annotations
 
@@ -1387,8 +1406,42 @@ def phase_fleet(device, card_db) -> dict[str, int]:
     return counts
 
 
+def _swapped_ops(flash_attention, ssd_scan, rwkv6_scan):
+    """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
+    ``ops.rwkv6_scan`` replaced by the given functions.  The models look
+    them up in ``ops`` at each call."""
+    import contextlib
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan
+        ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = (
+            flash_attention, ssd_scan, rwkv6_scan)
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = saved
+    return swapped()
+
+
+def _ssd_f64(x, dt, A, B, C):
+    """The SSD recurrence token by token in float64 from zero state
+    (``ref.ssd_sequential_ref``'s steps): a witness of the exact result,
+    against which a float32 order's error is measured."""
+    import torch
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    s = x.new_zeros(x.shape[:1] + x.shape[2:] + B.shape[-1:])  # (B,H,P,N)
+    ys = []
+    for t in range(x.shape[1]):
+        s = (s * torch.exp(dt[:, t] * A)[..., None, None]
+             + (dt[:, t, :, None] * x[:, t])[..., None] * B[:, t, None, None])
+        ys.append(torch.einsum("bhpn,bn->bhp", s, C[:, t]))
+    return torch.stack(ys, dim=1)
+
+
 def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
-                     = None):
+                     = None, witness: list | None = None):
     """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
     ``ops.rwkv6_scan`` replaced by versions that launch the kernel, run its
     plain version on the same inputs, and append (name, max abs err,
@@ -1399,10 +1452,12 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
     plain version are instead held to float64 within what float32 scores
     can reach (``conditioned_attention_gaps``), and to each other; the
     plain-version gate of the other families is then reported in
-    ``conditioned`` with the bound's statistics, not gated.
-    The models look them up in ``ops`` at each call."""
-    import contextlib
-
+    ``conditioned`` with the bound's statistics, not gated.  The checks
+    run without autograd, so a training step's launches (the forward's and
+    the remat recompute's) are held the same way.  With ``witness``, each
+    float32 ``ssd_scan`` launch from zero state also appends the relative
+    L2 distances of the kernel's y and of the plain version's from the
+    float64 recurrence (``_ssd_f64``) on the same inputs."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -1410,6 +1465,11 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
 
     def flash_attention(q, k, v, **kw):
         out = fa(q, k, v, **kw)
+        with torch.no_grad():       # a training step's launches record
+            check_attention(q, k, v, out, kw)
+        return out
+
+    def check_attention(q, k, v, out, kw):
         want = ops.plain_attention(q, k, v, **kw)
         tol = (2 ** -6 if q.dtype == torch.bfloat16 else 1e-4) \
             * v.abs().max().item()
@@ -1434,16 +1494,20 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
                 conditioned["control"] = conditioned_attention_gaps(
                     q, k, v, _attention_order(q, k, v, "s"), want, "bf16",
                     **kw)["kernel"]
-            return out
+            return
         errors.append(("flash_attention", err, tol))
         if q.dtype == torch.bfloat16:   # and element by element (_attention_case)
             want = ops.plain_attention(q.float(), k.float(), v.float(), **kw)
             errors.append(("flash_attention vs float32",
                            attention_gap(out, want), ATTN_BF16_C))
-        return out
 
     def ssd_scan(x, dt, A, B, C, **kw):
         out = ssd(x, dt, A, B, C, **kw)
+        with torch.no_grad():
+            check_ssd(x, dt, A, B, C, out, kw)
+        return out
+
+    def check_ssd(x, dt, A, B, C, out, kw):
         want = ref.ssd_chunked_ref(x, dt, A, B, C, **kw)
         y, y_p = (out[0], want[0]) if kw.get("return_state") else (out, want)
         base = 2 ** -6 if x.dtype == torch.bfloat16 else 1e-4
@@ -1451,6 +1515,11 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
         tol = ssd_rel_tol(dt, A, chunk, base) * y_p.float().abs().max().item()
         errors.append(("ssd_scan",
                        (y.float() - y_p.float()).abs().max().item(), tol))
+        if witness is not None and x.dtype == torch.float32 \
+                and kw.get("initial_state") is None:
+            exact = _ssd_f64(x, dt, A, B, C)
+            witness.append((_rel_l2(y, exact), _rel_l2(y_p, exact)))
+            del exact
         if kw.get("return_state"):
             errors.append(("ssd_scan state",
                            (out[1] - want[1]).abs().max().item(),
@@ -1473,10 +1542,14 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
                     x=x[b, :, h].clone(), dt=dt[b, :, h].clone(),
                     A=A[h].item(), B=B[b].clone(), C=C[b].clone(),
                     y=y[b, :, h].clone(), want=want[b, :, h].clone())
-        return out
 
     def rwkv6_scan(r, k, v, w, u, **kw):
         out = wkv(r, k, v, w, u, **kw)
+        with torch.no_grad():
+            check_rwkv6(r, k, v, w, u, out, kw)
+        return out
+
+    def check_rwkv6(r, k, v, w, u, out, kw):
         want = ref.rwkv6_chunked_ref(r, k, v, w, u, **kw)
         y, y_p = (out[0], want[0]) if kw.get("return_state") else (out, want)
         base = 2 ** -6 if r.dtype == torch.bfloat16 else 1e-4
@@ -1489,17 +1562,8 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
                            (out[1] - want[1]).abs().max().item(),
                            rwkv6_rel_tol(w, chunk, 1e-4)
                            * want[1].abs().max().item()))
-        return out
 
-    @contextlib.contextmanager
-    def swapped():
-        ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = (
-            flash_attention, ssd_scan, rwkv6_scan)
-        try:
-            yield
-        finally:
-            ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = fa, ssd, wkv
-    return swapped()
+    return _swapped_ops(flash_attention, ssd_scan, rwkv6_scan)
 
 
 LM_KERNELS = ("flash_attention", "ssd_scan", "rwkv6")
@@ -2206,6 +2270,507 @@ def phase_checkpoint(device) -> dict[str, int]:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 15: training
+# --------------------------------------------------------------------- #
+TRAIN_ARCH = "qwen2-vl-2b"      # the dense model whose training state fits
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024    # the reference launcher's global batch
+TRAIN_MICRO = 2                 # as examples/train_lm.py trains
+TRAIN_STEPS, TRAIN_WARMUP = 12, 3   # on 2 fixed batches, repeated
+# one bf16 step each for the two scan kernels' families, batch 4 x 1024:
+# rwkv6-1.6b whole; zamba2-7b at full width and 6 of its 81 layers, one
+# application of the shared block (its whole training state would be ~81
+# GB); None: whole
+TRAIN_ONE_STEP = {"rwkv6-1.6b": None, "zamba2-7b": 6}
+TRAIN_ONE_BATCH = 4
+# the float32 kernel-against-plain step's depth
+TRAIN_F32_LAYERS = {TRAIN_ARCH: 4, "rwkv6-1.6b": 4, "zamba2-7b": 6}
+
+
+def train_launches(cfg, n_micro: int) -> dict[str, int]:
+    """Launches of each LM kernel in one train step of ``n_micro``
+    microbatches: a microbatch's forward launches what a prefill does
+    (``lm_launches``), and under ``cfg.remat`` the backward recomputes each
+    layer's forward, launching it again; the backward's own products are
+    the plain version's vjp and launch none."""
+    per = lm_launches(cfg, 1, 0)
+    return {n: c * n_micro * (2 if cfg.remat else 1) for n, c in per.items()}
+
+
+def train_batch(cfg, device, batch: int, seed: int) -> dict:
+    """Seeded tokens (labels = tokens, as ``TokenPipeline`` makes them)
+    and, with the vision stub, ``cfg.n_patches`` patch embeddings a row at
+    the embedding table's scale, as ``serve_patch_embeds`` gives them."""
+    import torch
+    from repro_torch.launch.serve import make_prompts
+    tok = make_prompts(cfg, batch, TRAIN_SEQ, seed=seed, device=device)
+    out = {"tokens": tok, "labels": tok}
+    if cfg.vision_stub:
+        g = torch.Generator(device=device).manual_seed(100 + seed)
+        out["patch_embeds"] = (0.02 * torch.randn(
+            (batch, cfg.n_patches, cfg.d_model), generator=g,
+            device=device)).to(cfg.dtype)
+    return out
+
+
+def _train_cfg(arch: str, n_layers: int | None = None, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(arch, "full")
+    return dataclasses.replace(full, n_layers=n_layers or full.n_layers,
+                               dtype=dtype or full.dtype)
+
+
+def _loss_and_grads(model, batch) -> tuple[float, dict]:
+    """One forward and backward (``train.loop.grads_of``): (loss,
+    {name: gradient})."""
+    from repro_torch.train.loop import grads_of
+    loss, _, grads = grads_of(model, batch)
+    return loss.item(), grads
+
+
+def _rel_l2(a, b) -> float:
+    """Relative L2 distance of ``a`` from ``b``, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+
+def _checked_train_grads(model, batch, label: str) -> dict[str, int]:
+    """One forward and backward of a microbatch with every kernel launch
+    (the forward's and the remat recompute's) held to its plain version on
+    the same activations (``_checked_kernels``, the serve gates); fails on
+    any miss and unless each kernel launched exactly ``train_launches``."""
+    import torch
+    cfg = model.cfg
+    tag = f"[train {cfg.name}]"
+    errors: list = []
+    worst_ssd: dict = {}
+    with _checked_kernels(errors, worst_ssd):
+        c0 = _lm_counts(launch_counts())
+        loss, grads = _loss_and_grads(model, batch)
+        c1 = _lm_counts(launch_counts())
+    torch.cuda.synchronize()
+    got = {n: c1[n] - c0[n] for n in LM_KERNELS}
+    want = train_launches(cfg, 1)
+    check(got == want, f"{label}: a checked forward and backward launched "
+          f"{got}, not {want}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+          and loss == loss, f"{label}: a non-finite loss or gradient")
+    bf16 = cfg.dtype == torch.bfloat16
+    per_launch = {"flash_attention": 2 if bf16 else 1,
+                  "ssd_scan": 2 if bf16 else 1, "rwkv6": 1}
+    n_results = sum(per_launch[n] * got[n] for n in LM_KERNELS)
+    bad = [e for e in errors if not e[1] <= e[2]]
+    worst = {name: max(e[1] / e[2] for e in errors if e[0] == name)
+             for name in {e[0] for e in errors}}
+    print(f"{tag} a {label} forward and backward: {len(errors)} kernel "
+          f"results (launches {got}, the forward's and the remat "
+          f"recompute's) held to the plain versions on the same activations:"
+          f" worst err/tol " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in sorted(worst.items())))
+    check(len(errors) == n_results and not bad,
+          f"{label}: kernel results on the train step's activations disagree "
+          f"with their plain versions: {bad[:4]}")
+    return got
+
+
+# a float32 launch's difference from its plain version on the same inputs,
+# as the float32 gradient gate takes it a priori: 1e-6 of its output, the
+# serve gates' figure (phase 2's float32 cases sit below it)
+F32_LAUNCH_DELTA = 1e-6
+
+
+def _bf16_outputs():
+    """Context: each LM kernel's output rounded to bfloat16, a kernel
+    wrong by ~2^-9 of its output: the control that the float32 gradient
+    gate must fail."""
+    from repro_torch.kernels import ops
+
+    def rounded(fn):
+        return lambda *args, **kw: fn(*args, **kw).bfloat16().float()
+    return _swapped_ops(rounded(ops.flash_attention), rounded(ops.ssd_scan),
+                        rounded(ops.rwkv6_scan))
+
+
+def _train_f32_gate(device, arch: str, batch_rows: int) -> None:
+    """One float32 forward and backward from the same seeded weights and
+    batch on the kernel route and on the plain route (``use_kernel=
+    False``), at ``TRAIN_F32_LAYERS``, gated as the serve gates gate the
+    logits.
+
+    In float32 the routes differ only where a kernel launch's output
+    differs from its plain version's, in the order of the sums.  Each
+    launch is held to its plain version on the same inputs
+    (``_checked_kernels``).  The gradient gate takes each launch's
+    difference a priori, never from the kernel's output: delta =
+    ``F32_LAUNCH_DELTA`` (relative), or for ``ssd_scan`` twice the plain
+    version's own distance (relative L2) from the float64 recurrence on
+    the launch's inputs (``_ssd_f64``) where that is larger: a kernel may
+    sit as far from the exact result as the plain version does.  The depth
+    multiplies such differences by a growth measured here: how far the
+    plain route's loss and each parameter's gradient move (relative L2)
+    when the embedding table is perturbed by 1e-6 (relative), less the
+    noise floor, how far a repeat of the unperturbed plain step moves
+    them.  With S = sqrt(sum over the step's launches of delta^2) (the
+    forward's and the remat recompute's):
+
+    - |loss difference| <= the loss's growth (at least 1) x S x |loss|
+      + the loss's noise floor;
+    - each gradient's relative L2 difference <= its growth x S + its noise
+      floor.
+
+    Control: the kernel route with every launch's output rounded to
+    bfloat16 (``_bf16_outputs``) must fail the same gate."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.models.model import build_model
+    cfg = _train_cfg(arch, TRAIN_F32_LAYERS[arch], torch.float32)
+    tag = f"[train {cfg.name}]"
+    model = build_model(cfg, device, seed=0).requires_grad_(True)
+    batch = train_batch(cfg, device, batch_rows, seed=0)
+    want = train_launches(cfg, 1)
+
+    def route(use_kernel: bool, swap=None):
+        model.cfg = dataclasses.replace(model.cfg, use_kernel=use_kernel)
+        c0 = _lm_counts(launch_counts())
+        with swap or contextlib.nullcontext():
+            loss, grads = _loss_and_grads(model, batch)
+        got = {n: launch_counts()[n] - c0[n] for n in LM_KERNELS}
+        expect = want if use_kernel else dict.fromkeys(LM_KERNELS, 0)
+        check(got == expect, f"float32 {cfg.name}: a step on the "
+              f"{'kernel' if use_kernel else 'plain'} route launched {got}, "
+              f"not {expect}")
+        return loss, grads
+
+    p_loss, p_grads = route(False)
+    names = [n for n, g in p_grads.items() if g.norm() > 0]
+    r_loss, r_grads = route(False)
+    noise = {n: _rel_l2(r_grads[n], p_grads[n]) for n in names}
+    del r_grads
+    errors: list = []
+    witness: list = []
+    k_loss, k_grads = route(True, _checked_kernels(errors, {},
+                                                   witness=witness))
+    for name, g in k_grads.items():
+        check(name in names or g.norm() == 0, f"{name}: a gradient on the "
+              f"kernel route where the plain route has none")
+    diff = {n: _rel_l2(k_grads[n], p_grads[n]) for n in names}
+    del k_grads
+    c_loss, c_grads = route(True, _bf16_outputs())
+    ctrl = {n: _rel_l2(c_grads[n], p_grads[n]) for n in names}
+    del c_grads
+    table = model.embed_cb if cfg.n_codebooks else model.embedding
+    g = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        table.mul_(1 + 1e-6 * torch.randn(table.shape, generator=g,
+                                          device=device))
+    n_loss, n_grads = route(False)
+    moved = {n: _rel_l2(n_grads[n], p_grads[n]) for n in names}
+    del n_grads, p_grads, model
+    torch.cuda.empty_cache()
+
+    bad = [e for e in errors if not e[1] <= e[2]]
+    worst = {nm: max(e[1] / e[2] for e in errors if e[0] == nm)
+             for nm in {e[0] for e in errors}}
+    print(f"{tag} float32, {cfg.n_layers} layers, batch {batch_rows} x "
+          f"{TRAIN_SEQ}: {len(errors)} kernel results (launches {want}) held "
+          f"to their plain versions on the step's activations: worst err/tol "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items())))
+    check(len(errors) == sum(want.values()) and not bad,
+          f"float32 {cfg.name}: kernel results on the step's activations "
+          f"disagree with their plain versions: {bad[:4]}")
+    delta = dict.fromkeys(LM_KERNELS, F32_LAUNCH_DELTA)
+    if witness:
+        k_exact, p_exact = zip(*witness)
+        delta["ssd_scan"] = max(F32_LAUNCH_DELTA, 2 * max(p_exact))
+        print(f"{tag} float32 ssd_scan against the float64 recurrence on "
+              f"the step's {len(witness)} launches' inputs: relative L2 of "
+              f"the kernel {min(k_exact):.3e}-{max(k_exact):.3e}, of the "
+              f"plain version {min(p_exact):.3e}-{max(p_exact):.3e}; the "
+              f"gate's delta for ssd_scan {delta['ssd_scan']:.3e}")
+    spread = sum(want[k] * delta[k] ** 2 for k in LM_KERNELS) ** 0.5
+    growth = {n: max(moved[n] - noise[n], 0.0) / 1e-6 for n in names}
+    gate = {n: growth[n] * spread + noise[n] for n in names}
+    loss_noise = abs(r_loss - p_loss)
+    loss_growth = max((abs(n_loss - p_loss) - loss_noise) / abs(p_loss)
+                      / 1e-6, 1.0)
+    loss_tol = loss_growth * spread * abs(p_loss) + loss_noise
+
+    def ratios(d: dict, loss: float) -> list:
+        rows = [(d[n] / gate[n] if gate[n] > 0 else
+                 (float("inf") if d[n] > 0 else 0.0), n, d[n]) for n in names]
+        rows.append((abs(loss - p_loss) / loss_tol, "the loss",
+                     abs(loss - p_loss)))
+        return sorted(rows, reverse=True)
+    rows, c_rows = ratios(diff, k_loss), ratios(ctrl, c_loss)
+    growths = sorted(growth.values())
+    n_noisy = sum(v > 0 for v in noise.values())
+    loudest = max(names, key=noise.get)
+    print(f"{tag} float32 plain route: loss {p_loss:.7f}; a repeat moves "
+          f"the loss by {loss_noise:.3e} and {n_noisy} of {len(names)} "
+          f"gradients (at most {noise[loudest]:.3e}, {loudest}); the "
+          f"embeddings perturbed by 1e-6 move the loss by "
+          f"{abs(n_loss - p_loss):.3e}; gradient growth over that noise "
+          f"{growths[0]:.2f}-{growths[-1]:.1f}x (median "
+          f"{growths[len(growths) // 2]:.2f}x); S = {spread:.3e}")
+    print(f"{tag} float32 kernel route: loss {k_loss:.7f} (|diff| "
+          f"{abs(k_loss - p_loss):.3e}, gate {loss_tol:.3e}: growth "
+          f"{loss_growth:.2f} x S x |loss| + noise); the closest to their "
+          f"gate: " + "; ".join(f"{nm} {d:.2e} ({r:.3f} of its gate)"
+                                for r, nm, d in rows[:3]))
+    print(f"{tag} float32 control, every launch's output rounded to "
+          f"bfloat16: loss {c_loss:.7f}; the farthest past their gate: "
+          + "; ".join(f"{nm} {d:.2e} ({r:.1f} times its gate)"
+                      for r, nm, d in c_rows[:3])
+          + f"; {sum(r > 1 for r, _, _ in c_rows)} of {len(c_rows)} fail it")
+    check(rows[0][0] <= 1.0, f"float32 {cfg.name}: {rows[0][1]} differs "
+          f"between the routes by {rows[0][2]:.3e}, {rows[0][0]:.2f} times "
+          f"its gate")
+    check(c_rows[0][0] > 1.0, f"float32 {cfg.name}: the gate passed the "
+          f"control (every launch's output in bfloat16)")
+
+
+def _backward_split(device, cfg, rows: int) -> None:
+    """Each LM kernel of ``cfg`` at its train shape (``rows`` x
+    ``TRAIN_SEQ``, random inputs): the forward through its
+    ``autograd.Function`` (the kernel) and the backward (the plain
+    version's vjp, recomputed), medians of 10 calls between CUDA events,
+    and the backward's time in one step of ``rows`` rows (a layer's
+    launches of one microbatch's forward)."""
+    import torch
+    from repro_torch.kernels import ops
+    S, bf16 = TRAIN_SEQ, torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(5)
+    cases = []
+    per = lm_launches(cfg, 1, 0)
+    if per["flash_attention"]:
+        q = torch.randn((rows, S, cfg.n_heads, cfg.head_dim), generator=g,
+                        device=device).to(bf16)
+        k, v = (torch.randn((rows, S, cfg.n_kv_heads, cfg.head_dim),
+                            generator=g, device=device).to(bf16)
+                for _ in range(2))
+        cases.append(("flash_attention", ops.flash_attention, (q, k, v),
+                      dict(causal=True, window=cfg.sliding_window)))
+    if per["ssd_scan"]:
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(
+            device, bf16, (rows, S, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), False)
+        cases.append(("ssd_scan", ops.ssd_scan, (x, dt, A, Bm, Cm),
+                      dict(chunk=min(cfg.ssm_chunk, S))))
+    if per["rwkv6"]:
+        r, k, v, w, u, _ = _rwkv6_inputs(
+            device, bf16, (rows, S, cfg.n_heads, cfg.head_dim),
+            cfg.rwkv_chunk, False)
+        cases.append(("rwkv6", ops.rwkv6_scan, (r, k, v, w, u),
+                      dict(chunk=cfg.rwkv_chunk)))
+    for name, fn, inputs, kw in cases:
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        cot = torch.randn_like(fn(*xs, **kw))
+
+        def both():
+            torch.autograd.grad(fn(*xs, **kw), xs, cot)
+        for _ in range(2):
+            both()
+        fwd = statistics.median(_event_ms(lambda: fn(*xs, **kw), 10))
+        bwd = statistics.median(_event_ms(both, 10)) - fwd
+        print(f"[train {cfg.name}] {name} at the train shape "
+              f"{tuple(inputs[0].shape)}: forward (the kernel) {fwd:.3f} ms, "
+              f"backward (the plain version's vjp) {bwd:.3f} ms a launch; "
+              f"{per[name]} a microbatch of {rows} rows: {per[name] * bwd:.1f}"
+              f" ms of backward")
+        del xs, cot
+    torch.cuda.empty_cache()
+
+
+def _train_whole(device) -> dict[str, int]:
+    """qwen2-vl-2b whole, trained 12 steps in bf16 (f32 master, bf16
+    moments) through the kernels; see ``phase_train``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.models.model import build_model, loss_fn
+    from repro_torch.optim import (adamw_update, clip_by_global_norm,
+                                   cosine_schedule)
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    cfg = _train_cfg(TRAIN_ARCH)
+    tag = f"[train {cfg.name}]"
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=None)
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    trainer = Trainer(model, tcfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.cfg.use_kernel is True and cfg.remat,
+          "the model on the card does not train through the kernels, or "
+          "without remat")
+    n_params = sum(p.numel() for p in trainer.params.values())
+    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+    want = train_launches(cfg, TRAIN_MICRO)
+    per_step = []
+
+    def on_step(step, m):
+        per_step.append(_lm_counts(launch_counts()))
+        reset_launch_counts()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    log = trainer.run([batches[i % 2] for i in range(TRAIN_STEPS)],
+                      on_step=on_step)
+    counts = {n: sum(c[n] for c in per_step) for n in LM_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    inst = fa_mod.last_instance()
+    check(all(c == want for c in per_step),
+          f"train steps launched {per_step}, not {want} each")
+    check(inst == bf16_instance(cfg.head_dim), f"D = {cfg.head_dim} ran "
+          f"the KD = {inst} instance of flash_attention, not "
+          f"{bf16_instance(cfg.head_dim)}")
+    losses = [m["loss"] for m in log]
+    times = [m["step_time_s"] for m in log]
+    p50 = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in bf16 (f32 master, bf16 "
+          f"moments), seeded on the card in {init_s:.3f} s; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} ({cfg.n_patches} patch embeddings a "
+          f"row), {TRAIN_MICRO} microbatches, remat")
+    print(f"{tag} {TRAIN_STEPS} steps: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; grad norms " + " ".join(f"{m['grad_norm']:.3f}" for m in log))
+    print(f"{tag} step time p50 {p50 * 1e3:.3f} ms (first {times[0] * 1e3:.1f}"
+          f" ms, min {min(times) * 1e3:.3f}, max {max(times[1:]) * 1e3:.3f} "
+          f"after it), {tokens / p50:.1f} tokens/s; peak memory "
+          f"{peak_gb:.3f} GB; flash_attention {want['flash_attention']} "
+          f"launches a step ({TRAIN_MICRO} microbatches x 2 x "
+          f"{cfg.n_layers}, KD = {inst})")
+    check(all(x == x and abs(x) < float("inf") for x in losses),
+          f"a non-finite loss: {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(last < first, f"the loss did not fall: the first 3 steps' mean "
+          f"{first:.4f}, the last 3's {last:.4f}")
+
+    # the step split: each microbatch's forward and backward, then the
+    # optimizer (clip, schedule, AdamW), each between synchronises
+    params = trainer.params
+    batch = batches[0]
+    half = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batch.items()}
+    fwd = bwd = 0.0
+    for _ in range(TRAIN_MICRO):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, half)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd, bwd = fwd + t1 - t0, bwd + time.perf_counter() - t1
+    grads = {n: p.grad for n, p in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = clip_by_global_norm(grads, tcfg.max_grad_norm)
+    scale = cosine_schedule(trainer.opt_state["step"], warmup=TRAIN_WARMUP,
+                            total=TRAIN_STEPS)
+    _, trainer.opt_state = adamw_update(grads, trainer.opt_state, params,
+                                        tcfg.opt, scale)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    for p in params.values():
+        p.grad = None
+    del grads, loss
+    # the least time the card could take: the step's products (8 x the
+    # matmul parameters x tokens: forward, recompute and two in the
+    # backward; every parameter but the embedding table's gather) at the
+    # bf16 peak; the optimizer's bytes (26 a parameter: the gradient read
+    # by the norm and the clip and written by the clip, m, v and the
+    # master read and written, the bf16 parameter written) at HBM's rate
+    n_mm = n_params - model.embedding.numel()
+    gemm_ms = 8 * n_mm * tokens / PEAK_BF16_FLOP_PER_S * 1e3
+    opt_ms = 26 * n_params / PEAK_BYTES_PER_S * 1e3
+    print(f"{tag} one step split: forward {fwd * 1e3:.3f} ms, backward "
+          f"(the remat recompute included) {bwd * 1e3:.3f} ms over "
+          f"{TRAIN_MICRO} microbatches, optimizer (clip, schedule, AdamW "
+          f"over {n_params / 1e9:.3f} B) {opt_s * 1e3:.3f} ms; bounds: the "
+          f"step's products {gemm_ms:.1f} ms ({8 * n_mm * tokens:.3e} FLOP), "
+          f"the optimizer's bytes {opt_ms:.1f} ms")
+    reset_launch_counts()
+    wall, dev, ops_ = device_profile(lambda: trainer.run([batch]), top=None)
+    ours = [op for op in ops_ if "flash" in op[0]]
+    print(f"{tag} profiled step, busy share: {busy_text(wall, dev)}"
+          + (f"; an estimate across runs, not a busy share: its device "
+             f"time over the unprofiled steps' p50 is {100 * dev / p50:.2f}%"
+             if dev else "")
+          + f"; top device ops: {top_text(ops_[:10])}"
+          + (f"; flash_attention: {top_text(ours)}" if ours else ""))
+    reset_launch_counts()
+
+    # every launch of one microbatch's forward and backward against its
+    # plain version on the step's activations
+    _checked_train_grads(model, half, "bf16")
+    _backward_split(device, cfg, TRAIN_BATCH // TRAIN_MICRO)
+    del trainer, model, batches, batch, half
+    torch.cuda.empty_cache()
+    _train_f32_gate(device, TRAIN_ARCH, TRAIN_BATCH // TRAIN_MICRO)
+    return counts
+
+
+def _train_one_step(device, arch: str) -> dict[str, int]:
+    """One bf16 train step of ``arch`` (cut to ``TRAIN_ONE_STEP``'s depth)
+    at batch 4 x 1024 through the kernels: exact launch counts, a finite
+    loss and gradient norm, every launch held to its plain version, and
+    the float32 kernel-against-plain gate."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import TrainConfig, Trainer
+
+    full = _train_cfg(arch)
+    cfg = _train_cfg(arch, TRAIN_ONE_STEP[arch])
+    tag = f"[train {cfg.name}]"
+    cut = (f" (cut: {cfg.n_layers} of its {full.n_layers} layers, full "
+           f"width)" if cfg.n_layers < full.n_layers else "")
+    model = build_model(cfg, device, seed=None)
+    trainer = Trainer(model, TrainConfig(total_steps=10, warmup_steps=0),
+                      seed=0)
+    n_params = sum(p.numel() for p in trainer.params.values())
+    batch = train_batch(cfg, device, TRAIN_ONE_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    (m,) = trainer.run([batch])
+    counts = _lm_counts(launch_counts())
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = train_launches(cfg, 1)
+    print(f"{tag} {cfg.n_layers} layers{cut}, {n_params / 1e9:.3f} B "
+          f"parameters in bf16: one step at batch {TRAIN_ONE_BATCH} x "
+          f"{TRAIN_SEQ} in {m['step_time_s'] * 1e3:.1f} ms (the first), loss "
+          f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, peak memory "
+          f"{peak_gb:.3f} GB; launches {counts}")
+    check(counts == want, f"one train step launched {counts}, not {want}")
+    check(all(abs(m[k]) < float("inf") and m[k] == m[k]
+              for k in ("loss", "grad_norm")),
+          f"a non-finite loss or gradient norm: {m}")
+    _checked_train_grads(model, batch, "bf16")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    _backward_split(device, cfg, TRAIN_ONE_BATCH)
+    _train_f32_gate(device, arch, TRAIN_ONE_BATCH)
+    return {n: counts.get(n, 0) for n in _kernel_modules()}
+
+
+def phase_train(device) -> dict[str, int]:
+    """Phase 15 (see the module's docstring): the counts of the three
+    models' timed train steps (``reset_launch_counts`` just before each,
+    read just after)."""
+    import torch
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(_kernel_modules(), 0)
+    for part in (_train_whole(device),
+                 *(_train_one_step(device, a) for a in TRAIN_ONE_STEP)):
+        for n, c in part.items():
+            counts[n] += c
+    return counts
+
+
 def launch_floor(device) -> float:
     """Device ms of a one-element ``add_``, replayed as ``cuda_ms`` replays
     the kernels: the least a launch costs, whatever it computes."""
@@ -2251,8 +2816,10 @@ def main() -> int:
     paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
     paths.append(phase_checkpoint(device))
     paths.append(phase_serve(device, MLA_ARCH))
+    paths.append(phase_train(device))
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
+        row["train_launches"] = paths[-1][row["name"]]
         check(row["launches"] > 0, f"the main path never launched {row['name']}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

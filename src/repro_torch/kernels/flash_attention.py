@@ -86,7 +86,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype}")
     if any(t.requires_grad for t in ts):
         raise ValueError("flash_attention_cuda has no backward; call it on "
-                         "tensors that do not require grad")
+                         "tensors that do not require grad (ops."
+                         "flash_attention gives it the plain version's)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} are not (B, Sq, Hq, D) and twice "

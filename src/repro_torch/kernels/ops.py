@@ -5,6 +5,15 @@ to the CUDA kernel (which raises on anything it does not take), a CPU tensor
 to the plain version in ``ref.py``.  There is no fallback from one to the
 other.  Whether a caller goes through these functions at all is its own
 ``use_kernel`` choice (see ``device.resolve_use_kernel``).
+
+The three LM kernels have no backward kernel, and neither have the JAX
+package's (it trains through its XLA oracles).  Where autograd records a
+call (grad mode on and an input that requires grad), it goes through a
+``torch.autograd.Function`` per kernel: its forward is the same route on
+the inputs detached (the kernel on the card), and its backward recomputes
+the plain version from the saved inputs and returns that version's
+vector-Jacobian product, the gradient the reference's training route
+computes.
 """
 from __future__ import annotations
 
@@ -74,6 +83,16 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              q_offset=q_offset)
 
 
+def _flash_attention(q, k, v, *, causal: bool, window: int, q_offset: int
+                     ) -> torch.Tensor:
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    return plain_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0
                     ) -> torch.Tensor:
@@ -81,13 +100,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q.dtype — the prefill of every
     attention layer: the hybrid's shared block, each GQA layer of the
     dense and MoE stacks and each MLA layer, at q-k width with v padded to
-    it (``models.attention``)."""
-    if q.is_cuda:
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
-    return plain_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
+    it (``models.attention``); and their training forward, with the
+    gradient of ``plain_attention`` (``FlashAttentionGrad``)."""
+    if _records(q, k, v):
+        return FlashAttentionGrad.apply(q, k, v, causal, window, q_offset)
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -114,21 +132,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def _ssd_scan(x, dt, A, B, C, **kw):
+    if x.is_cuda:
+        from repro_torch.kernels.ssm_scan import ssd_scan_cuda
+        return ssd_scan_cuda(x, dt, A, B, C, **kw)
+    return ref.ssd_chunked_ref(x, dt, A, B, C, **kw)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
              initial_state: torch.Tensor | None = None,
              return_state: bool = False):
     """Mamba2 SSD over a sequence (``ref.ssd_chunked_ref``'s contract):
     y (B, L, H, P) in x.dtype and, with ``return_state``, the final state
-    (B, H, P, N) f32 — every Mamba2 layer's prefill (``models.ssm``)."""
-    if x.is_cuda:
-        from repro_torch.kernels.ssm_scan import ssd_scan_cuda
-        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
-                             initial_state=initial_state,
-                             return_state=return_state)
-    return ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk,
-                               initial_state=initial_state,
-                               return_state=return_state)
+    (B, H, P, N) f32 — every Mamba2 layer's prefill (``models.ssm``), and
+    its training forward from a zero state without the final state, with
+    the gradient of ``ref.ssd_chunked_ref`` (``SsdScanGrad``)."""
+    if _records(x, dt, A, B, C, initial_state):
+        _trainable("ssd_scan", initial_state, return_state)
+        return SsdScanGrad.apply(x, dt, A, B, C, chunk)
+    return _ssd_scan(x, dt, A, B, C, chunk=chunk,
+                     initial_state=initial_state, return_state=return_state)
+
+
+def _rwkv6_scan(r, k, v, w, u, **kw):
+    if r.is_cuda:
+        from repro_torch.kernels.rwkv6 import rwkv6_cuda
+        return rwkv6_cuda(r, k, v, w, u, **kw)
+    return ref.rwkv6_chunked_ref(r, k, v, w, u, **kw)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,12 +169,93 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV6 WKV over a sequence (``ref.rwkv6_chunked_ref``'s contract):
     y (B, L, H, V) in r.dtype and, with ``return_state``, the final state
     (B, H, K, V) f32 -- every RWKV6 layer's prefill and decode step
-    (``models.rwkv``)."""
-    if r.is_cuda:
-        from repro_torch.kernels.rwkv6 import rwkv6_cuda
-        return rwkv6_cuda(r, k, v, w, u, chunk=chunk,
-                          initial_state=initial_state,
-                          return_state=return_state)
-    return ref.rwkv6_chunked_ref(r, k, v, w, u, chunk=chunk,
-                                 initial_state=initial_state,
-                                 return_state=return_state)
+    (``models.rwkv``), and its training forward from a zero state without
+    the final state, with the gradient of ``ref.rwkv6_chunked_ref``
+    (``Rwkv6ScanGrad``)."""
+    if _records(r, k, v, w, u, initial_state):
+        _trainable("rwkv6_scan", initial_state, return_state)
+        return Rwkv6ScanGrad.apply(r, k, v, w, u, chunk)
+    return _rwkv6_scan(r, k, v, w, u, chunk=chunk,
+                       initial_state=initial_state, return_state=return_state)
+
+
+# --------------------------------------------------------------------- #
+# gradients: the kernel forward, the plain version's vjp backward
+# --------------------------------------------------------------------- #
+def _records(*ts) -> bool:
+    """Whether autograd records a call on these inputs (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _trainable(name: str, initial_state, return_state: bool) -> None:
+    """Training runs a scan from a zero state and takes no final state;
+    the gradient of anything else is not provided."""
+    if initial_state is not None or return_state:
+        raise NotImplementedError(
+            f"{name} has a gradient only from a zero state and without the "
+            f"final state (initial_state=None, return_state=False)")
+
+
+def _plain_vjp(ctx, plain, grad: torch.Tensor, n: int, **kw) -> tuple:
+    """The gradients of ``plain(*inputs, **kw)`` against ``grad`` for the
+    first ``n`` inputs of ``ctx`` (saved tensors), recomputed from them;
+    None where an input needs none."""
+    need = ctx.needs_input_grad[:n]
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(g)
+              for t, g in zip(ctx.saved_tensors, need)]
+        out = plain(*xs, **kw)
+        grads = iter(torch.autograd.grad(
+            out, [x for x in xs if x.requires_grad], grad))
+    return tuple(next(grads) if g else None for g in need)
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """``flash_attention`` with a backward: the kernel forward on the
+    detached inputs, the vjp of ``plain_attention`` (looked up at the
+    call) in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return _flash_attention(q.detach(), k.detach(), v.detach(), **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(ctx, plain_attention, grad, 3, **ctx.kw) \
+            + (None, None, None)
+
+
+class SsdScanGrad(torch.autograd.Function):
+    """``ssd_scan`` from a zero state with a backward: the kernel forward,
+    the vjp of ``ref.ssd_chunked_ref`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _ssd_scan(*(t.detach() for t in (x, dt, A, B, C)), chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(ctx, ref.ssd_chunked_ref, grad, 5,
+                          chunk=ctx.chunk) + (None,)
+
+
+class Rwkv6ScanGrad(torch.autograd.Function):
+    """``rwkv6_scan`` from a zero state with a backward: the kernel
+    forward, the vjp of ``ref.rwkv6_chunked_ref`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return _rwkv6_scan(*(t.detach() for t in (r, k, v, w, u)),
+                           chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _plain_vjp(ctx, ref.rwkv6_chunked_ref, grad, 5,
+                          chunk=ctx.chunk) + (None,)

@@ -297,11 +297,20 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Ldec = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
-    # exp where k <= q, 0 above the diagonal (in place: the serve shape's
-    # (B, nc, Q, Q, H) tile is ~1.9 GB)
-    Ldec.exp_().masked_fill_(~causal[None, None, :, :, None], 0.0)
+    # exp where k <= q, 0 above the diagonal.  Above it the entries are the
+    # decay sums between k and q, which overflow exp past ~88; they are set
+    # to -inf before the exp (exp gives 0 there, as the reference's masking
+    # after the exp does), so that no inf reaches the backward as 0 x inf:
+    # the reference's gradient is NaN wherever one overflows, this one is
+    # that gradient everywhere else.  In place where autograd does not
+    # record: the serve shape's (B, nc, Q, Q, H) tile is ~1.9 GB.
+    above = ~causal[None, None, :, :, None]
     cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # (B,nc,Q,Q)
-    Ldec.mul_(cb[..., None])                             # (B,nc,Q,K,H)
+    if Ldec.requires_grad:
+        Ldec = torch.exp(Ldec.masked_fill(above, -torch.inf)) * cb[..., None]
+    else:
+        Ldec.masked_fill_(above, -torch.inf).exp_()
+        Ldec.mul_(cb[..., None])                         # (B,nc,Q,K,H)
     u = dtc[..., None] * xc                              # (B,nc,K,H,P)
     intra = torch.einsum("bcqkh,bckhp->bcqhp", Ldec, u)
     del Ldec, u

@@ -68,7 +68,8 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "in r's dtype or float32")
     if any(t.requires_grad for t in ts):
         raise ValueError("rwkv6_cuda has no backward; call it on tensors that "
-                         "do not require grad")
+                         "do not require grad (ops.rwkv6_scan gives it the "
+                         "plain version's)")
     if r.dim() != 4:
         raise ValueError(f"r {tuple(r.shape)} is not (B, L, H, K)")
     Bsz, L, H, K = r.shape

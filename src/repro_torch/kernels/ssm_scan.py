@@ -63,7 +63,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise TypeError("ssd_scan_cuda takes float32 dt, A and initial_state")
     if any(t.requires_grad for t in ts):
         raise ValueError("ssd_scan_cuda has no backward; call it on tensors "
-                         "that do not require grad")
+                         "that do not require grad (ops.ssd_scan gives it "
+                         "the plain version's)")
     if x.dim() != 4:
         raise ValueError(f"x {tuple(x.shape)} is not (B, L, H, P)")
     Bsz, L, H, P = x.shape

@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack (serving)."""
+"""Entry points of the port's LM stack: serving (``serve.py``) and training
+(``train.py``)."""

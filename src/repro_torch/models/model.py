@@ -1,10 +1,11 @@
 """Model assembly for the hybrid family (Zamba2: a Mamba2 stack with one
 weight-shared attention(+MLP) block applied after every k-th layer), the
 plain Mamba2 stack, the RWKV6 stack (``cfg.rwkv``) and the dense and MoE
-families (a stack of GQA attention + SwiGLU or mixture-of-experts layers),
-inference only: ``forward``, ``prefill`` and ``decode`` as in
-``repro.models.model.Model``.  Attention is GQA or, with ``attn_type``
-"mla", DeepSeek-V3's multi-head latent attention; a MoE config with
+families (a stack of GQA attention + SwiGLU or mixture-of-experts layers):
+``forward``, ``prefill`` and ``decode`` as in ``repro.models.model.Model``,
+and the training loss, ``cross_entropy`` and ``loss_fn``.  Attention is
+GQA or, with ``attn_type`` "mla", DeepSeek-V3's multi-head latent
+attention; a MoE config with
 ``first_k_dense`` runs that many dense-FFN layers (``dense_layers``) before
 its MoE ``layers``, as the reference does.  The audio family (MusicGen)
 runs the dense stack over ``n_codebooks`` token streams, whose embeddings
@@ -17,7 +18,9 @@ The layers are ``nn.Module``s run in a Python loop (the reference scans a
 stacked tree); parameters keep the reference's names, so
 ``params.load_reference_params`` carries a JAX parameter tree over.  The
 decode cache keeps the reference's stacked layout, and ``prefill`` and
-``decode`` update it in place and return it.
+``decode`` update it in place and return it; both run without autograd.
+``forward`` runs with it, each layer under activation checkpointing when
+``cfg.remat`` is set.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, resolve_use_kernel
 from repro_torch.models import attention as attn
@@ -219,37 +223,60 @@ class Model(nn.Module):
         return bool(k) and (i + 1) % k == 0
 
     # ----------------------------- forward ----------------------------- #
-    @torch.no_grad()
+    def _layer_runner(self, fn):
+        """``fn`` as one layer of the training forward: under
+        ``cfg.remat``, and while autograd records (grad mode on and a
+        parameter that requires grad), recomputed in the backward instead
+        of keeping its activations (the reference's ``jax.checkpoint(...,
+        nothing_saveable)`` per layer)."""
+        if not (self.cfg.remat and torch.is_grad_enabled()
+                and any(p.requires_grad for p in self.parameters())):
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
     def forward(self, tokens: torch.Tensor,
                 patch_embeds: torch.Tensor | None = None):
         """tokens (B, S) -> (logits (B, S, V), aux): the reference's
-        training forward, without autograd.  With codebooks tokens are
-        (B, S, CB) and logits (B, S, CB, V); ``patch_embeds`` as in
-        ``embed``.  ``aux`` is the MoE load-balance loss summed over the
-        layers (0.0 without experts)."""
+        training forward, recorded by autograd where the parameters
+        require grad (``train.loop.init_train_state``).  With codebooks
+        tokens are (B, S, CB) and logits (B, S, CB, V); ``patch_embeds`` as
+        in ``embed``.  ``aux`` is the MoE load-balance loss summed over the
+        layers in layer order (0.0 without experts).  Each layer (a
+        hybrid's Mamba2 layer with the shared block it is followed by)
+        runs under ``_layer_runner``."""
         cfg = self.cfg
         x = self.embed(tokens, patch_embeds)
         positions = self._positions(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self._dense:
+            def dense(layer, x):
+                y, _, a = _dense_layer_fwd(layer, x, cfg, positions, "train")
+                return y, a
+            run = self._layer_runner(dense)
             for name in self._dense_stacks():
                 for layer in getattr(self, name):
-                    x, _, a = _dense_layer_fwd(layer, x, cfg, positions,
-                                               "train")
+                    x, a = run(layer, x)
                     aux = aux + a
             return self.logits(x), aux
-        for i, layer in enumerate(self.layers):
-            if cfg.rwkv:
-                x = x + rwkv_mod.rwkv6_time_mix(
-                    layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg)
-                x = x + rwkv_mod.rwkv6_channel_mix(
-                    layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg)
-                continue
+
+        def rwkv(layer, x):
+            x = x + rwkv_mod.rwkv6_time_mix(
+                layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg)
+            return x + rwkv_mod.rwkv6_channel_mix(
+                layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg)
+
+        def mamba(layer, x, shared: bool):
             x = x + ssm_mod.mamba2_forward(
                 layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
-            if self._shared_due(i):
+            if shared:
                 x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
                                            positions, "train")
+            return x
+
+        run = self._layer_runner(rwkv if cfg.rwkv else mamba)
+        for i, layer in enumerate(self.layers):
+            x = run(layer, x) if cfg.rwkv else run(layer, x,
+                                                   self._shared_due(i))
         return self.logits(x), aux
 
     # ------------------------------ cache ------------------------------ #
@@ -392,3 +419,25 @@ def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0
     uninitialised, for ``load_reference_params``)."""
     model = Model(cfg, device)
     return model if seed is None else model.init(seed)
+
+
+# ===================================================================== #
+# losses (``repro.models.model.cross_entropy`` / ``loss_fn``)
+# ===================================================================== #
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE.  logits: (B, S, V) or (B, S, CB, V); labels
+    match without V.  In float32: logsumexp minus the gold logit."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
+    """(CE of position t's logits against label t + 1, plus 0.01 x the MoE
+    aux loss; {"ce", "aux"}).  ``batch``: ``tokens``, ``labels`` (shaped
+    like the tokens: (B, S), or (B, S, CB) with codebooks) and, for the
+    vision stub, ``patch_embeds``."""
+    logits, aux = model(batch["tokens"], batch.get("patch_embeds"))
+    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

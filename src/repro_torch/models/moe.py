@@ -116,19 +116,28 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     xbuf = buf[:E * C].view(E, C, d)
 
     # ---- expert compute (batched over the expert axis) --------------- #
-    # in place where the reference makes new arrays: the same products, and
-    # the expert outputs overwrite the dispatch buffer (at DeepSeek-V3's
-    # 16,384 prefill tokens it is 2.35 GB in bf16, and each copy spared
-    # counts beside the weights on one card)
-    h = F.silu(torch.bmm(xbuf, p.w_gate), inplace=True)
-    h.mul_(torch.bmm(xbuf, p.w_up))
-    torch.bmm(h, p.w_down, out=xbuf)
-    del h
-    buf[E * C].zero_()                 # a dropped pair's output is zero
+    gate = torch.bmm(xbuf, p.w_gate)
+    if gate.requires_grad:
+        # autograd keeps what the backward reads: new arrays, as in the
+        # reference; a dropped pair's output is zero and takes no gradient
+        h = F.silu(gate) * torch.bmm(xbuf, p.w_up)
+        ybuf = torch.cat([torch.bmm(h, p.w_down).reshape(E * C, d),
+                          buf.new_zeros((1, d))])
+        y_tok = ybuf[slot] * sw[:, None].to(buf.dtype)
+    else:
+        # in place where the reference makes new arrays: the same products,
+        # and the expert outputs overwrite the dispatch buffer (at
+        # DeepSeek-V3's 16,384 prefill tokens it is 2.35 GB in bf16, and
+        # each copy spared counts beside the weights on one card)
+        h = F.silu(gate, inplace=True)
+        h.mul_(torch.bmm(xbuf, p.w_up))
+        torch.bmm(h, p.w_down, out=xbuf)
+        del h, gate
+        buf[E * C].zero_()             # a dropped pair's output is zero
+        y_tok = buf[slot]
+        y_tok.mul_(sw[:, None].to(buf.dtype))
 
     # ---- combine ------------------------------------------------------ #
-    y_tok = buf[slot]
-    y_tok.mul_(sw[:, None].to(buf.dtype))
     y = x.new_zeros((T, d)).index_add_(0, st, y_tok)
 
     out = y.reshape(B, S, d)

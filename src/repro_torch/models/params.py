@@ -20,7 +20,10 @@ and ``repro.models.model.Model.init``):
 
 The two packages' generators give different numbers from one seed; the
 parity tests carry the reference's weights over with
-``load_reference_params``.
+``load_reference_params``, and its AdamW state with
+``opt_state_from_reference``.  ``reference_paths`` and
+``opt_state_to_reference`` go the other way (per-layer tensors stacked
+into the reference's paths).
 """
 from __future__ import annotations
 
@@ -113,21 +116,61 @@ STACKED = ("layers", "dense_layers")
 RENAMED = {"embed": "embedding"}
 
 
+def split_reference_paths(flat: dict[str, Any]) -> dict[str, Any]:
+    """The reference's flat paths -> the port's parameter names: a stacked
+    leaf (``layers.mixer.w_in``, shape (n, ...)) becomes the n entries
+    ``layers.<i>.mixer.w_in`` (likewise under ``dense_layers``), and the
+    leaves of ``RENAMED`` take the port's names.  Values are indexed, not
+    copied."""
+    out = {}
+    for path, arr in flat.items():
+        top, _, rest = path.partition(".")
+        if top in STACKED:
+            for i in range(np.shape(arr)[0]):
+                out[f"{top}.{i}.{rest}"] = arr[i]
+        else:
+            out[RENAMED.get(path, path)] = arr
+    return out
+
+
+def reference_paths(named: dict[str, Any]) -> dict[str, Any]:
+    """The inverse of ``split_reference_paths``: the port's per-layer
+    entries (parameters, gradients, optimizer moments or master copies,
+    keyed by parameter name) stacked in layer order into the reference's
+    flat paths (``torch.stack`` for tensors, ``np.stack`` for arrays), and
+    ``RENAMED`` undone."""
+    back = {v: k for k, v in RENAMED.items()}
+    out: dict[str, Any] = {}
+    stacks: dict[str, dict[int, Any]] = {}
+    for name, val in named.items():
+        top, _, rest = name.partition(".")
+        if top in STACKED:
+            i, _, leaf = rest.partition(".")
+            stacks.setdefault(f"{top}.{leaf}", {})[int(i)] = val
+        else:
+            out[back.get(name, name)] = val
+    for path, by_layer in stacks.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{path}: layers {sorted(by_layer)} are not "
+                             f"0..{len(by_layer) - 1}")
+        seq = [by_layer[i] for i in range(len(by_layer))]
+        out[path] = (torch.stack([t.detach() for t in seq])
+                     if isinstance(seq[0], torch.Tensor) else np.stack(seq))
+    return out
+
+
 @torch.no_grad()
 def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
     """Fill ``model`` from the JAX package's parameters.
 
     ``flat`` is ``paths_from_tree(params)`` of the reference's tree with
-    numpy arrays as leaves.  A stacked leaf (``layers.mixer.w_in``, shape
-    (n, ...)) fills the n per-layer parameters ``layers.<i>.mixer.w_in``,
-    and likewise under ``dense_layers``.
+    numpy arrays as leaves, named as ``split_reference_paths`` maps them.
     Every parameter of the model must be filled exactly once, each with its
     own shape; values are cast to the parameter's dtype.
     """
     own = dict(model.named_parameters())
     filled = set()
-
-    def put(name, arr):
+    for name, arr in split_reference_paths(flat).items():
         if name not in own:
             raise KeyError(f"reference parameter {name!r} has no counterpart "
                            "in the port's model")
@@ -138,14 +181,34 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
                              f"port shape {tuple(p.shape)}")
         p.copy_(t.to(device=p.device, dtype=p.dtype))
         filled.add(name)
-
-    for path, arr in flat.items():
-        top, _, rest = path.partition(".")
-        if top in STACKED:
-            for i in range(np.shape(arr)[0]):
-                put(f"{top}.{i}.{rest}", np.asarray(arr)[i])
-        else:
-            put(RENAMED.get(path, path), arr)
     missing = sorted(set(own) - filled)
     if missing:
         raise KeyError(f"no reference value for {missing}")
+
+
+def opt_state_from_reference(state: dict, cfg, device) -> dict:
+    """The reference's AdamW state (``{"m", "v", "master"}`` trees, flat or
+    nested, with numpy leaves, and ``step``) as the port's
+    (``optim.adamw_init``'s layout): per-parameter tensors on ``device``,
+    the moments in ``cfg.moment_dtype`` and the master in
+    ``cfg.master_dtype`` (any object with those two attributes, such as an
+    ``AdamWConfig``)."""
+    def convert(tree, dtype):
+        return {name: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                    device=device, dtype=dtype)
+                for name, a in split_reference_paths(
+                    paths_from_tree(tree)).items()}
+    return {"m": convert(state["m"], cfg.moment_dtype),
+            "v": convert(state["v"], cfg.moment_dtype),
+            "master": convert(state["master"], cfg.master_dtype),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def opt_state_to_reference(state: dict) -> dict:
+    """The port's AdamW state in the reference's layout: ``m``, ``v`` and
+    ``master`` as flat reference paths of stacked tensors
+    (``reference_paths``), ``step`` as an int."""
+    out = {key: reference_paths(state[key]) for key in ("m", "v", "master")}
+    out["step"] = int(state["step"])
+    return out

@@ -31,8 +31,12 @@ from repro_torch.kernels.spline_fit import nat_spline_fit_cuda
 from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.models.model import Model, build_model
 from repro_torch.netsim import ParamBounds, make_dataset
+from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+from repro_torch.train import elastic
+from repro_torch.train.loop import TrainConfig, Trainer, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -62,6 +66,11 @@ def test_port_files_import_neither_jax_nor_the_jax_package():
                           for n in names if n.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
+    # the training slice is among the files checked
+    for rel in ("optim/adamw.py", "optim/grad_utils.py", "optim/schedule.py",
+                "train/loop.py", "train/elastic.py", "train/straggler.py",
+                "launch/train.py"):
+        assert PORT / rel in _port_files(), rel
 
 
 def test_every_port_module_imports_with_jax_and_repro_blocked():
@@ -269,6 +278,33 @@ def test_serving_entry_points_default_to_the_card(no_cuda, capsys):
         serve.main(["--arch", "deepseek-v3-671b", "--variant", "smoke"])
     model = build_model(ds, "cpu")
     assert model.cfg.use_kernel is False and model.device.type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card(no_cuda, tmp_path,
+                                                   capsys):
+    """The training launcher with no ``--device`` asks for the card and
+    raises here, as ``resolve_device`` does, rather than train on the
+    CPU; so does recovery from a checkpoint.  Asked for the CPU by name,
+    the launcher trains there, and the trainer runs on the model's
+    device."""
+    args = ["--arch", "minitron-4b", "--variant", "smoke", "--steps", "1",
+            "--global-batch", "2", "--seq", "8", "--ckpt-dir",
+            str(tmp_path / "run")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic.recover(str(tmp_path / "run"))
+    log = train_cli.main(args + ["--device", "cpu"])
+    assert len(log) == 1 and "device: cpu" in capsys.readouterr().out
+    model = build_model(get_config("minitron-4b", "smoke"), "cpu")
+    trainer = Trainer(model, TrainConfig(), seed=0)
+    assert all(p.device.type == "cpu" and p.requires_grad
+               for p in trainer.params.values())
+    assert trainer.opt_state["step"].device.type == "cpu"
+    assert float(cosine_schedule(trainer.opt_state["step"])) == 0.0
+    assert adamw_init(model, AdamWConfig())["m"]["embedding"].device.type \
+        == "cpu"
+    assert callable(make_train_step(model, TrainConfig()))
 
 
 def _smoke(cwd):
