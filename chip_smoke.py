@@ -94,24 +94,46 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               a gate that bf16-rounded kernel outputs must fail; then one
               bf16 step each of rwkv6-1.6b whole (48 ``rwkv6``) and
               zamba2-7b at full width and 6 of its 81 layers (12
-              ``ssd_scan``, 2 ``flash_attention``), with the same gates.
+              ``ssd_scan``, 2 ``flash_attention``), with the same gates;
+16. dist   -- ``repro_torch.dist`` on a 1-rank NCCL group and
+              ``make_host_mesh()``'s (1, 1) mesh: the paper's tuner fit on
+              ``ici_environment``'s history (the card's NVLink modelled in
+              its throughput law) tunes the gradient all-reduce's
+              ``BucketPlan``; phase 15's first 4 steps of qwen2-vl-2b
+              through the sharded step (gradients averaged over ``data``
+              by ``bucketed_allreduce`` with that plan, the optimizer state
+              at rest as DTensors) held bit for bit to the unsharded step
+              from the same seed and batches (loss, gradient norm, every
+              parameter), 112 ``flash_attention`` a step; the step's whole
+              flat gradient (1.777 B float32) through ``flatten_grads``
+              and both all-reduces, bucketed exact and int8 within half a
+              step of each chunk's scale, each timed (a 1-rank figure)
+              beside its bytes bound; ``make_pipeline_fn`` at S = 1 over
+              the 28 layers, 4 microbatches of 2 x 2048, equal to the
+              sequential stack, 112 launches; ``recover`` of the trained
+              parameters from a checkpoint onto the (1, 1) mesh, every
+              leaf equal and in its placements.  A failed NCCL start
+              fails the run.
 
-Phases 3 to 15 are the main path: every kernel's launch count is set to
+Phases 3 to 16 are the main path: every kernel's launch count is set to
 0 just before each and read just after (phase 13: just around the restored
-model's prefill; phase 15: around each timed train step), and a kernel
-that the path did not launch fails the run.  Phases 3 to 6 end with one
+model's prefill; phase 15: around each timed train step; phase 16: around
+each sharded step and the pipeline), and a kernel that the path did not
+launch fails the run.  Phases 3 to 6 end with one
 more, profiled run of a fit, a fleet or a training, phases 7-12 and 14
 profile decode steps and a prefill, and phase 15 a train step, to report
 how much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary (``launches`` over the whole
-main path, ``train_launches`` those of phase 15's timed steps), the
+main path, ``train_launches`` those of phase 15's timed steps,
+``dist_launches`` phase 16's), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
 script needs a CUDA card and the checkout's ``src/`` beside it.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2771,6 +2793,360 @@ def phase_train(device) -> dict[str, int]:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 16: dist
+# --------------------------------------------------------------------- #
+# the schedule's first step has rate 0; the steps after the first are
+# timed (host walls), their median compared
+DIST_STEPS = 4
+DIST_HISTORY = {"days": 2, "transfers_per_day": 150, "seed": 1}
+DIST_GRADS = {"avg_file_mb": 1600.0, "n_files": 64}  # 64 x 1600 MB
+DIST_PIPE_MICRO, DIST_PIPE_ROWS, DIST_PIPE_SEQ = 4, 2, 2048
+DIST_TIMED = 5                  # CUDA-event runs of each collective
+# an int8 round trip's worst error, in units of its chunk's scale s: half a
+# step, plus float32 rounding of x / s (|x / s| <= 127) and of q * s
+INT8_HALF_STEP = 0.5 + 2 * 127 * 2.0 ** -24
+
+
+def _stacked_layers(model) -> dict:
+    """The model's ``layers`` stack in the reference's layout: {leaf: (L,
+    ...)} (one copy)."""
+    from repro_torch.models.params import reference_paths
+    flat = reference_paths(dict(model.named_parameters()))
+    return {path[len("layers."):]: t for path, t in flat.items()
+            if path.startswith("layers.")}
+
+
+def _layer_slice(model, positions):
+    """``layer_slice(params, x)`` of ``make_pipeline_fn`` for a dense stack:
+    each layer of the sub-stack {leaf: (n, ...)} applied in order, by
+    ``torch.func.functional_call`` over the model's first layer."""
+    import torch
+    from torch import nn
+    from repro_torch.models.model import _dense_layer_fwd
+    cfg = model.cfg
+
+    class Layer(nn.Module):
+        def __init__(self, layer):
+            super().__init__()
+            self.layer = layer
+
+        def forward(self, x):
+            return _dense_layer_fwd(self.layer, x, cfg, positions, "train")[0]
+
+    one = Layer(model.layers[0])
+
+    def layer_slice(params, x):
+        n = next(iter(params.values())).shape[0]
+        for i in range(n):
+            x = torch.func.functional_call(
+                one, {f"layer.{k}": v[i] for k, v in params.items()}, (x,))
+        return x
+    return layer_slice
+
+
+def _dist_bridge(device):
+    """The paper's tuner on the card's interconnect model; -> (tuned
+    params, BucketPlan)."""
+    from repro_torch.core import TransferTuner, TunerConfig
+    from repro_torch.dist.collectives import (ici_environment,
+                                              plan_from_tuner_params)
+    from repro_torch.netsim import Dataset, generate_history
+    env = ici_environment(seed=0)
+    t0 = time.perf_counter()
+    hist = generate_history(env, **DIST_HISTORY)
+    tuner = TransferTuner(TunerConfig(seed=0, device=device)).fit(hist)
+    fit_s = time.perf_counter() - t0
+    grads = Dataset("gradients", "large", **DIST_GRADS)
+    rep = tuner.transfer(ici_environment(seed=9), grads)
+    plan = plan_from_tuner_params(rep.params)
+    print(f"[dist] paper bridge: {len(hist)} history entries on "
+          f"{env.link.name} ({env.link.bandwidth_mbps / 8000:.0f} GB/s a "
+          f"direction, the tuner's model of the card's NVLink), fit in "
+          f"{fit_s:.3f} s; {DIST_GRADS['n_files']} x "
+          f"{DIST_GRADS['avg_file_mb']:.0f} MB gradient dataset: tuned "
+          f"(cc, p, pp) = {rep.params.as_tuple()}, {rep.steady_mbps / 8000:.1f}"
+          f" GB/s modelled -> {plan}")
+    check(rep.achieved_mbps > 0 and plan.n_buckets >= 1
+          and plan.chunks_per_bucket >= 1 and plan.pipeline_depth >= 1,
+          f"the bridge gave no valid plan: {rep.params}, {plan}")
+    return plan
+
+
+def _dist_steps(device, mesh, plan, flat_out: list):
+    """Phase 15's first ``DIST_STEPS`` steps of qwen2-vl-2b unsharded, then
+    the same from the same seed and batches through the sharded step on
+    ``mesh``: loss, gradient norm and every updated parameter equal bit for
+    bit; the optimizer state rests as DTensors in the step's placements.
+    ``flat_out`` receives the last step's flat float32 gradient (the input
+    of its ``bucketed_allreduce``) and its spec.  Returns (the sharded
+    model, its steps' launches)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    import repro_torch.train.loop as loop
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import paths_from_tree
+
+    cfg = _train_cfg(TRAIN_ARCH)
+    tag = f"[dist {cfg.name}]"
+    tcfg = loop.TrainConfig(microbatches=TRAIN_MICRO,
+                            warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+    want_launches = train_launches(cfg, TRAIN_MICRO)
+    runs = []
+    for sharded in (False, True):
+        model = build_model(cfg, device, seed=None)
+        _, opt = loop.init_train_state(model, 0, tcfg)
+        step = loop.make_train_step(model, tcfg, mesh=mesh if sharded
+                                    else None, plan=plan)
+        seen = []
+        original = loop.bucketed_allreduce
+
+        def spy(v, plan_, group=None):
+            seen[:] = [v]
+            return original(v, plan_, group)
+        loop.bucketed_allreduce = spy
+        mets, counts, times = [], [], []
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            for i in range(DIST_STEPS):
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt, m = step(opt, batches[i % 2])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts.append(_lm_counts(launch_counts()))
+                mets.append(m)
+        finally:
+            loop.bucketed_allreduce = original
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        print(f"{tag} {'sharded on ' + str(tuple(mesh.shape)) if sharded else 'unsharded'}"
+              f": {DIST_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"{TRAIN_MICRO} microbatches, remat; losses "
+              + " ".join(f"{float(m['loss']):.6f}" for m in mets)
+              + "; grad norms " + " ".join(f"{float(m['grad_norm']):.6f}"
+                                          for m in mets)
+              + "; step times " + " ".join(f"{t * 1e3:.1f}" for t in times)
+              + f" ms; peak memory {peak:.3f} GB; launches {counts}")
+        check(bool(seen) == sharded, "the sharded step did not reduce its "
+              "gradients through bucketed_allreduce" if sharded else
+              "the unsharded step reduced its gradients")
+        if not sharded:
+            want = ([(m["loss"], m["grad_norm"]) for m in mets],
+                    {n: p.detach().clone() for n, p in model.named_parameters()})
+            base_s = statistics.median(times[1:])
+            del model, opt, step
+            torch.cuda.empty_cache()
+            continue
+        check(all(c == want_launches for c in counts),
+              f"the sharded steps launched {counts}, not {want_launches} each")
+        for (lw, gw), m in zip(want[0], mets):
+            check(torch.equal(m["loss"], lw) and torch.equal(m["grad_norm"], gw),
+                  f"the sharded step's loss {float(m['loss'])!r} or gradient "
+                  f"norm {float(m['grad_norm'])!r} differs from the unsharded "
+                  f"step's {float(lw)!r}, {float(gw)!r}")
+        differ = [n for n, p in model.named_parameters()
+                  if not torch.equal(p, want[1][n])]
+        check(not differ, f"{len(differ)} parameters differ from the "
+              f"unsharded step's, first {differ[:3]}")
+        placed = paths_from_tree(opt)
+        rest = step.shardings["opt_state"]
+        wrong = [p for p, leaf in placed.items()
+                 if not isinstance(leaf, DTensor)
+                 or leaf.placements != rest[p].placements]
+        check(not wrong, f"optimizer state not at rest in its placements: "
+              f"{wrong[:3]}")
+        print(f"{tag} sharded = unsharded bit for bit: {DIST_STEPS} losses "
+              f"and gradient norms, {len(want[1])} parameters; "
+              f"{len(placed)} optimizer leaves at rest as DTensors in "
+              f"their placements; the sharded steps after the first took "
+              f"{(statistics.median(times[1:]) - base_s) * 1e3:.1f} ms more "
+              f"than the unsharded ones (medians of {DIST_STEPS - 1} host "
+              f"walls each)")
+        spec = [((n,), tuple(p.shape), p.dtype)
+                for n, p in model.named_parameters()]
+        flat_out[:] = [seen[0], spec]
+        total = {n: sum(c[n] for c in counts) for n in LM_KERNELS}
+        del want, opt, step, seen
+        torch.cuda.empty_cache()
+        return model, total
+
+
+def _dist_collectives(device, mesh, plan, flat, spec) -> None:
+    """Flatten and both all-reduces of the step's whole gradient on the
+    1-rank group: exact, and int8 within half a step of each chunk's
+    scale; each timed by CUDA events beside its bytes bound."""
+    import torch
+    from repro_torch.dist.collectives import (flatten_grads,
+                                              bucketed_allreduce,
+                                              quantized_allreduce,
+                                              unflatten_grads)
+    group = (mesh, "data")
+    n = flat.numel()
+    tree = unflatten_grads(flat, spec)
+    again, _ = flatten_grads(tree)
+    check(torch.equal(again, flat), "flatten(unflatten(g)) != g")
+    del again
+    out = bucketed_allreduce(flat, plan, group)
+    check(torch.equal(out, flat), "the 1-rank bucketed all-reduce is not "
+          "exact")
+    del out
+    q = quantized_allreduce(flat, plan, group)
+    per = -(-n // plan.n_chunks)
+    worst = 0.0
+    for c in range(plan.n_chunks):
+        x, y = flat[c * per:(c + 1) * per], q[c * per:(c + 1) * per]
+        if x.numel() == 0:
+            continue
+        s = (x.abs().amax() / 127.0 + 1e-12).item()
+        worst = max(worst, (y - x).abs().amax().item() / s)
+    del q
+    check(worst <= INT8_HALF_STEP, f"the int8 all-reduce is {worst} of a "
+          f"chunk's scale away, past {INT8_HALF_STEP}")
+    # bytes the passes move: flatten reads each bf16 gradient and writes
+    # float32; both all-reduces read the float32 vector and write their
+    # float32 result (the input read once, the output written once)
+    src_bytes = sum(torch.empty((), dtype=dt).element_size() * math.prod(sh)
+                    for _, sh, dt in spec)
+    cases = [("flatten_grads", lambda: flatten_grads(tree),
+              src_bytes + 4 * n),
+             ("bucketed_allreduce", lambda: bucketed_allreduce(
+                 flat, plan, group), 8 * n),
+             ("quantized_allreduce", lambda: quantized_allreduce(
+                 flat, plan, group), 8 * n)]
+    for name, run, n_bytes in cases:
+        run()
+        torch.cuda.synchronize()
+        ms = statistics.median(_event_ms(run, DIST_TIMED))
+        b_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        print(f"[dist] {name} of the step's {n / 1e9:.3f} B-element "
+              f"gradient ({4 * n / 1e9:.2f} GB in float32), plan {plan}: "
+              f"{ms:.3f} ms (median of {DIST_TIMED}, CUDA events; a 1-rank "
+              f"figure, no NCCL bandwidth in it), bytes bound {b_ms:.3f} ms "
+              f"({n_bytes / 1e9:.2f} GB at 3.35 TB/s), "
+              f"{100 * b_ms / ms:.1f}% of it")
+    print(f"[dist] the 1-rank bucketed all-reduce returns the gradient bit "
+          f"for bit; the int8 one is within {worst:.6f} of a chunk's scale "
+          f"(gate {INT8_HALF_STEP:.6f}); peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB")
+
+
+def _dist_pipeline(device, model) -> dict[str, int]:
+    """``make_pipeline_fn`` at S = 1 over qwen2-vl-2b's 28 layers, M = 4
+    microbatches of 2 x 2048, against the sequential stack; -> its
+    launches."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.pipeline_par import (PipelineConfig,
+                                               make_pipeline_fn,
+                                               split_stages)
+    from repro_torch.launch.serve import make_prompts
+    cfg = model.cfg
+    M, B, S = DIST_PIPE_MICRO, DIST_PIPE_ROWS, DIST_PIPE_SEQ
+    tokens = make_prompts(cfg, M * B, S, seed=7, device=device)
+    with torch.no_grad():
+        xs = model.embed(tokens).reshape(M, B, S, cfg.d_model)
+        stacked = _stacked_layers(model)
+        layer_slice = _layer_slice(model, model._positions(tokens[:B]))
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+        pcfg = PipelineConfig(1, M)
+        fn = make_pipeline_fn(layer_slice, mesh, pcfg)
+        stages = split_stages(stacked, 1)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(stages, xs)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        counts = _lm_counts(launch_counts())
+        t0 = time.perf_counter()
+        want = torch.stack([layer_slice(stacked, x) for x in xs])
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    reset_launch_counts()
+    n_launch = cfg.n_layers * (M + pcfg.n_stages - 1)
+    print(f"[dist] pipeline: S = 1, M = {M} microbatches of {B} x {S} over "
+          f"{cfg.name}'s {cfg.n_layers} layers ({M + pcfg.n_stages - 1} "
+          f"ticks, bubble {pcfg.bubble_fraction:.2f}) in {pipe_s * 1e3:.1f} "
+          f"ms, the sequential stack in {seq_s * 1e3:.1f} ms; launches "
+          f"{counts}")
+    check(torch.equal(got, want), "the pipeline's output differs from the "
+          "sequential stack's")
+    check(counts["flash_attention"] == n_launch and counts["ssd_scan"] == 0
+          and counts["rwkv6"] == 0, f"the pipeline launched {counts}, not "
+          f"{n_launch} flash_attention")
+    return counts
+
+
+def _dist_recover(device, model) -> None:
+    """``recover`` of a checkpoint of the trained parameters onto the
+    (1, 1) mesh: every leaf ``torch.equal`` and in its placements."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.dist.sharding import default_rules, tree_shardings
+    from repro_torch.train import elastic
+    params = dict(model.named_parameters())
+    axes = model.param_axes()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, 1, params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan, mesh, state = elastic.recover(d, axes, [0])
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+    want = tree_shardings(params, axes, mesh, default_rules(False))
+    bad = [p for p, t in params.items()
+           if not torch.equal(state[p].to_local(), t)
+           or state[p].placements != want[p].placements
+           or state[p].device_mesh.device_type != "cuda"]
+    print(f"[dist] recover: {len(params)} leaves ({sum(t.numel() for t in params.values()) / 1e9:.3f} B parameters) "
+          f"saved in {save_s:.2f} s, planned {plan.shape}, carved, restored "
+          f"and resharded onto the card in {rec_s:.2f} s")
+    check(plan.shape == (1, 1) and tuple(mesh.shape) == (1, 1),
+          f"recovery planned {plan.shape}, not (1, 1)")
+    check(not bad, f"{len(bad)} recovered leaves differ or are misplaced, "
+          f"first {bad[:3]}")
+
+
+def phase_dist(device) -> dict[str, int]:
+    """Phase 16 (see the module's docstring): the launches of the sharded
+    train steps and of the pipeline (``reset_launch_counts`` just before
+    each, read just after)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    # one rank on the card; a failed NCCL start fails the run
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+              and dist.get_backend() == "nccl",
+              f"the host mesh is {mesh}, backend {dist.get_backend()}")
+        plan = _dist_bridge(device)
+        flat = []
+        model, counts = _dist_steps(device, mesh, plan, flat)
+        torch.cuda.reset_peak_memory_stats(device)
+        _dist_collectives(device, mesh, plan, *flat)
+        del flat
+        torch.cuda.empty_cache()
+        for name, c in _dist_pipeline(device, model).items():
+            counts[name] += c
+        _dist_recover(device, model)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"[dist] phase done in {time.perf_counter() - t_start:.1f} s")
+    return {n: counts.get(n, 0) for n in _kernel_modules()}
+
+
 def launch_floor(device) -> float:
     """Device ms of a one-element ``add_``, replayed as ``cuda_ms`` replays
     the kernels: the least a launch costs, whatever it computes."""
@@ -2816,10 +3192,13 @@ def main() -> int:
     paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
     paths.append(phase_checkpoint(device))
     paths.append(phase_serve(device, MLA_ARCH))
-    paths.append(phase_train(device))
+    train = phase_train(device)
+    dist_counts = phase_dist(device)
+    paths += [train, dist_counts]
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
-        row["train_launches"] = paths[-1][row["name"]]
+        row["train_launches"] = train[row["name"]]
+        row["dist_launches"] = dist_counts[row["name"]]
         check(row["launches"] > 0, f"the main path never launched {row['name']}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

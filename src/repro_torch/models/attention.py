@@ -36,14 +36,19 @@ class GQA(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = ctx.param("wq", (d, H, hd))
-        self.wk = ctx.param("wk", (d, Hkv, hd))
-        self.wv = ctx.param("wv", (d, Hkv, hd))
-        self.wo = ctx.param("wo", (H, hd, d))
+        self.wq = ctx.param("wq", (d, H, hd), ("embed", "heads", "head_dim"))
+        self.wk = ctx.param("wk", (d, Hkv, hd),
+                             ("embed", "kv_heads", "head_dim"))
+        self.wv = ctx.param("wv", (d, Hkv, hd),
+                             ("embed", "kv_heads", "head_dim"))
+        self.wo = ctx.param("wo", (H, hd, d), ("heads", "head_dim", "embed"))
         if cfg.qkv_bias:
-            self.bq = ctx.param("bq", (H, hd), init="zeros")
-            self.bk = ctx.param("bk", (Hkv, hd), init="zeros")
-            self.bv = ctx.param("bv", (Hkv, hd), init="zeros")
+            self.bq = ctx.param("bq", (H, hd), ("heads", "head_dim"),
+                                init="zeros")
+            self.bk = ctx.param("bk", (Hkv, hd), ("kv_heads", "head_dim"),
+                                init="zeros")
+            self.bv = ctx.param("bv", (Hkv, hd), ("kv_heads", "head_dim"),
+                                init="zeros")
 
 
 def gqa_init(cfg: ModelConfig, ctx: InitCtx) -> GQA:
@@ -160,11 +165,13 @@ class MLA(nn.Module):
         qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
         dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                       cfg.v_head_dim)
-        self.wq_a = ctx.param("wq_a", (d, qr))
-        self.wq_b = ctx.param("wq_b", (qr, H, dn + dr))
-        self.wkv_a = ctx.param("wkv_a", (d, kvr + dr))
-        self.wkv_b = ctx.param("wkv_b", (kvr, H, dn + dv))
-        self.wo = ctx.param("wo", (H, dv, d))
+        self.wq_a = ctx.param("wq_a", (d, qr), ("embed", "q_lora"))
+        self.wq_b = ctx.param("wq_b", (qr, H, dn + dr),
+                              ("q_lora", "heads", "head_dim"))
+        self.wkv_a = ctx.param("wkv_a", (d, kvr + dr), ("embed", "kv_lora"))
+        self.wkv_b = ctx.param("wkv_b", (kvr, H, dn + dv),
+                               ("kv_lora", "heads", "head_dim"))
+        self.wo = ctx.param("wo", (H, dv, d), ("heads", "head_dim", "embed"))
 
 
 def mla_init(cfg: ModelConfig, ctx: InitCtx) -> MLA:

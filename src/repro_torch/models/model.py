@@ -37,13 +37,13 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import InitCtx, init_params
+from repro_torch.models.params import InitCtx, init_params, param_axes
 
 
 class MambaLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
-        self.ln = ctx.param("ln", (cfg.d_model,), init="ones")
+        self.ln = ctx.param("ln", (cfg.d_model,), ("embed",), init="ones")
         self.mixer = ssm_mod.mamba2_init(cfg, ctx)
 
 
@@ -53,8 +53,8 @@ class RwkvLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
-        self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
-        self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
+        self.ln1 = ctx.param("ln1", (cfg.d_model,), ("embed",), init="ones")
+        self.ln2 = ctx.param("ln2", (cfg.d_model,), ("embed",), init="ones")
         self.time = rwkv_mod.rwkv6_init(cfg, ctx)
 
 
@@ -65,8 +65,8 @@ class DenseLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx, use_moe: bool = False):
         super().__init__()
-        self.ln1 = ctx.param("ln1", (cfg.d_model,), init="ones")
-        self.ln2 = ctx.param("ln2", (cfg.d_model,), init="ones")
+        self.ln1 = ctx.param("ln1", (cfg.d_model,), ("embed",), init="ones")
+        self.ln2 = ctx.param("ln2", (cfg.d_model,), ("embed",), init="ones")
         self.attn = (attn.mla_init(cfg, ctx) if cfg.attn_type == "mla"
                      else attn.gqa_init(cfg, ctx))
         if use_moe:
@@ -129,15 +129,17 @@ class Model(nn.Module):
         # with codebooks it and ``head`` are kept unread, as the reference
         # keeps them
         self.embedding = ctx.param("embed", (cfg.vocab_size, cfg.d_model),
-                                   scale=0.02)
-        self.ln_f = ctx.param("ln_f", (cfg.d_model,), init="ones")
+                                   ("vocab", "embed"), scale=0.02)
+        self.ln_f = ctx.param("ln_f", (cfg.d_model,), ("embed",), init="ones")
         if not cfg.tie_embeddings:
             self.head = ctx.param("head", (cfg.d_model, cfg.vocab_size),
-                                  scale=0.02)
+                                  ("embed", "vocab"), scale=0.02)
         if cfg.n_codebooks:
             CB, V, d = cfg.n_codebooks, cfg.vocab_size, cfg.d_model
-            self.embed_cb = ctx.param("embed_cb", (CB, V, d), scale=0.02)
-            self.head_cb = ctx.param("head_cb", (CB, d, V), scale=0.02)
+            self.embed_cb = ctx.param("embed_cb", (CB, V, d),
+                                      (None, "vocab", "embed"), scale=0.02)
+            self.head_cb = ctx.param("head_cb", (CB, d, V),
+                                     (None, "embed", "vocab"), scale=0.02)
         # each stack's leaves take std 1/sqrt(that stack's depth)
         n = cfg.n_layers - self._first_dense
         stack = InitCtx(cfg.dtype, dev, stack=n)
@@ -162,6 +164,12 @@ class Model(nn.Module):
         ``torch.Generator`` on the model's device seeded with ``seed``."""
         init_params(self, torch.Generator(device=self.device).manual_seed(seed))
         return self
+
+    def param_axes(self) -> dict[str, tuple]:
+        """{the reference's parameter path: logical axes}, the second value
+        of the reference's ``Model.init``: stacked leaves once, with their
+        leading ``"layers"`` axis (``params.param_axes``)."""
+        return param_axes(self)
 
     # --------------------------- embedding ---------------------------- #
     def embed(self, tokens: torch.Tensor,

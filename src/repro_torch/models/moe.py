@@ -25,9 +25,9 @@ class FFN(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: InitCtx, d_ff: int | None = None):
         super().__init__()
         d, f = cfg.d_model, d_ff or cfg.d_ff
-        self.w_gate = ctx.param("w_gate", (d, f))
-        self.w_up = ctx.param("w_up", (d, f))
-        self.w_down = ctx.param("w_down", (f, d))
+        self.w_gate = ctx.param("w_gate", (d, f), ("embed", "mlp"))
+        self.w_up = ctx.param("w_up", (d, f), ("embed", "mlp"))
+        self.w_down = ctx.param("w_down", (f, d), ("mlp", "embed"))
 
 
 def ffn_init(cfg: ModelConfig, ctx: InitCtx, d_ff: int | None = None) -> FFN:
@@ -46,10 +46,13 @@ class MoE(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
         d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-        self.router = ctx.param("router", (d, E))
-        self.w_gate = ctx.param("w_gate", (E, d, f))
-        self.w_up = ctx.param("w_up", (E, d, f))
-        self.w_down = ctx.param("w_down", (E, f, d))
+        self.router = ctx.param("router", (d, E), ("embed", None))
+        self.w_gate = ctx.param("w_gate", (E, d, f),
+                                  ("experts", "embed", "expert_mlp"))
+        self.w_up = ctx.param("w_up", (E, d, f),
+                                ("experts", "embed", "expert_mlp"))
+        self.w_down = ctx.param("w_down", (E, f, d),
+                                  ("experts", "expert_mlp", "embed"))
         if cfg.n_shared_experts:
             self.shared = FFN(cfg, ctx, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
 

@@ -2,8 +2,11 @@
 from the JAX package's parameter trees.
 
 Every parameter is made through ``InitCtx.param``, which allocates it on the
-model's device and records how the JAX package initialises it;
-``init_params`` then fills every parameter from one ``torch.Generator``.
+model's device and records how the JAX package initialises it and the
+*logical* names of its axes (``p.logical_axes``, which ``dist/sharding.py``
+maps onto a device mesh); ``init_params`` then fills every parameter from
+one ``torch.Generator``, and ``param_axes`` collects the axes under the
+reference's paths.
 The rule is the reference's as it is (``repro.models.params.InitCtx.param``
 and ``repro.models.model.Model.init``):
 
@@ -52,9 +55,13 @@ class InitCtx:
     device: torch.device
     stack: int = 0                   # > 0: a layer of a stack of this many
 
-    def param(self, name: str, shape: tuple[int, ...], *,
-              scale: float | None = None, init: str = "normal"
+    def param(self, name: str, shape: tuple[int, ...], logical_axes: tuple,
+              *, scale: float | None = None, init: str = "normal"
               ) -> nn.Parameter:
+        if len(shape) != len(logical_axes):
+            raise ValueError(f"{name}: shape {tuple(shape)} has "
+                             f"{len(shape)} axes, logical axes "
+                             f"{tuple(logical_axes)} {len(logical_axes)}")
         full = tuple(shape)
         if self.stack:
             init, scale, full = _leaf_init(name), None, (self.stack,) + full
@@ -64,6 +71,7 @@ class InitCtx:
         p = nn.Parameter(torch.empty(shape, dtype=self.dtype,
                                      device=self.device), requires_grad=False)
         p.init_rule = (init, scale)
+        p.logical_axes = tuple(logical_axes)
         return p
 
 
@@ -156,6 +164,39 @@ def reference_paths(named: dict[str, Any]) -> dict[str, Any]:
         seq = [by_layer[i] for i in range(len(by_layer))]
         out[path] = (torch.stack([t.detach() for t in seq])
                      if isinstance(seq[0], torch.Tensor) else np.stack(seq))
+    return out
+
+
+def reference_path(name: str) -> tuple[str, bool]:
+    """A port name (of a parameter, or of an entry of a tree keyed by
+    parameter names, such as ``m.layers.3.attn.wq`` of the AdamW state) ->
+    (the reference's path, whether the reference stacks it): the layer
+    index after a ``STACKED`` name is dropped and ``RENAMED`` undone, so
+    ``layers.3.attn.wq`` -> (``layers.attn.wq``, True) and ``embedding`` ->
+    (``embed``, False)."""
+    back = {v: k for k, v in RENAMED.items()}
+    parts, out, stacked = name.split("."), [], False
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if part in STACKED and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(part)
+            stacked, i = True, i + 2
+            continue
+        out.append(back.get(part, part) if i == len(parts) - 1 else part)
+        i += 1
+    return ".".join(out), stacked
+
+
+def param_axes(module: nn.Module) -> dict[str, tuple]:
+    """{the reference's path: logical axes} of every parameter of
+    ``module``, as the reference's ``Model.init`` returns them: a stacked
+    leaf (the port's ``layers.<i>.<leaf>``) once, with the leading
+    ``"layers"`` axis its stacking adds."""
+    out = {}
+    for name, p in module.named_parameters():
+        path, stacked = reference_path(name)
+        out[path] = (("layers",) if stacked else ()) + p.logical_axes
     return out
 
 

@@ -39,18 +39,21 @@ class Rwkv6(nn.Module):
         d = cfg.d_model
         H, K = rwkv6_heads(cfg), cfg.head_dim
         for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
-            setattr(self, name, ctx.param(name, (d,), init="ones"))
-        for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
-            setattr(self, name, ctx.param(name, (d, d)))
-        self.w_base = ctx.param("w_base", (d,), init="zeros")
-        self.w_lora_a = ctx.param("w_lora_a", (d, LORA_R))
-        self.w_lora_b = ctx.param("w_lora_b", (LORA_R, d))
-        self.u = ctx.param("u", (H, K), scale=0.1)
-        self.ln_x = ctx.param("ln_x", (d,), init="ones")
-        self.mu_ck = ctx.param("mu_ck", (d,), init="ones")
-        self.w_ck = ctx.param("w_ck", (d, cfg.d_ff))
-        self.w_cv = ctx.param("w_cv", (cfg.d_ff, d))
-        self.w_cr = ctx.param("w_cr", (d, d))
+            setattr(self, name, ctx.param(name, (d,), ("embed",),
+                                          init="ones"))
+        for name in ("w_r", "w_k", "w_v", "w_g"):
+            setattr(self, name, ctx.param(name, (d, d),
+                                          ("embed", "heads_x_dim")))
+        self.w_o = ctx.param("w_o", (d, d), ("heads_x_dim", "embed"))
+        self.w_base = ctx.param("w_base", (d,), ("embed",), init="zeros")
+        self.w_lora_a = ctx.param("w_lora_a", (d, LORA_R), ("embed", None))
+        self.w_lora_b = ctx.param("w_lora_b", (LORA_R, d), (None, "embed"))
+        self.u = ctx.param("u", (H, K), ("heads", "head_dim"), scale=0.1)
+        self.ln_x = ctx.param("ln_x", (d,), ("embed",), init="ones")
+        self.mu_ck = ctx.param("mu_ck", (d,), ("embed",), init="ones")
+        self.w_ck = ctx.param("w_ck", (d, cfg.d_ff), ("embed", "mlp"))
+        self.w_cv = ctx.param("w_cv", (cfg.d_ff, d), ("mlp", "embed"))
+        self.w_cr = ctx.param("w_cr", (d, d), ("embed", "embed_out"))
 
 
 def rwkv6_init(cfg: ModelConfig, ctx: InitCtx) -> Rwkv6:

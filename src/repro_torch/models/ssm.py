@@ -27,14 +27,17 @@ class Mamba2(nn.Module):
         super().__init__()
         d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         conv_dim = di + 2 * N
-        self.w_in = ctx.param("w_in", (d, 2 * di + 2 * N + H))
-        self.conv_w = ctx.param("conv_w", (cfg.ssm_conv, conv_dim), scale=0.5)
-        self.conv_b = ctx.param("conv_b", (conv_dim,), init="zeros")
-        self.A_log = ctx.param("A_log", (H,), init="zeros")
-        self.D = ctx.param("D", (H,), init="ones")
-        self.dt_bias = ctx.param("dt_bias", (H,), init="zeros")
-        self.norm_w = ctx.param("norm_w", (di,), init="ones")
-        self.w_out = ctx.param("w_out", (di, d))
+        self.w_in = ctx.param("w_in", (d, 2 * di + 2 * N + H),
+                              ("embed", "inner"))
+        self.conv_w = ctx.param("conv_w", (cfg.ssm_conv, conv_dim),
+                                (None, "inner"), scale=0.5)
+        self.conv_b = ctx.param("conv_b", (conv_dim,), ("inner",),
+                                init="zeros")
+        self.A_log = ctx.param("A_log", (H,), (None,), init="zeros")
+        self.D = ctx.param("D", (H,), (None,), init="ones")
+        self.dt_bias = ctx.param("dt_bias", (H,), (None,), init="zeros")
+        self.norm_w = ctx.param("norm_w", (di,), ("inner",), init="ones")
+        self.w_out = ctx.param("w_out", (di, d), ("inner", "embed"))
 
 
 def mamba2_init(cfg: ModelConfig, ctx: InitCtx) -> Mamba2:

@@ -32,6 +32,7 @@ from repro_torch.kernels.ssm_scan import ssd_scan_cuda
 from repro_torch.kernels.transfer_select import batched_predict_argmax_cuda
 from repro_torch.launch import serve
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import Model, build_model
 from repro_torch.netsim import ParamBounds, make_dataset
 from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
@@ -66,10 +67,11 @@ def test_port_files_import_neither_jax_nor_the_jax_package():
                           for n in names if n.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
-    # the training slice is among the files checked
+    # the training and distribution slices are among the files checked
     for rel in ("optim/adamw.py", "optim/grad_utils.py", "optim/schedule.py",
                 "train/loop.py", "train/elastic.py", "train/straggler.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py", "dist/sharding.py",
+                "dist/collectives.py", "dist/pipeline_par.py"):
         assert PORT / rel in _port_files(), rel
 
 
@@ -293,7 +295,9 @@ def test_training_entry_points_default_to_the_card(no_cuda, tmp_path,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        elastic.recover(str(tmp_path / "run"))
+        elastic.recover(str(tmp_path / "run"), {}, [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_host_mesh()
     log = train_cli.main(args + ["--device", "cpu"])
     assert len(log) == 1 and "device: cpu" in capsys.readouterr().out
     model = build_model(get_config("minitron-4b", "smoke"), "cpu")

@@ -474,16 +474,25 @@ def test_checkpoint_resume_continues_bit_for_bit(tmp_path):
 
 
 def test_recover_restores_on_one_device(tmp_path):
+    """One surviving rank: a (1, 1) mesh, every leaf restored as a DTensor
+    whose whole value is the saved one."""
+    import torch.distributed as dist
     cfg = _mini()
     trainer = Trainer(build_model(cfg, "cpu", seed=None), TrainConfig(),
                       seed=0)
     d = str(tmp_path / "ck")
     save_checkpoint(d, 1, reference_paths(trainer.params))
-    plan, tree = elastic.recover(d, "cpu")
-    assert plan == elastic.MeshPlan((1, 1), ("data", "model"), 1)
-    flat = paths_from_tree(tree)
-    for name, p in reference_paths(trainer.params).items():
-        assert torch.equal(flat[name], p), name
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        plan, mesh, tree = elastic.recover(d, trainer.model.param_axes(),
+                                           [0], device="cpu")
+        assert plan == elastic.MeshPlan((1, 1), ("data", "model"), 1)
+        assert tuple(mesh.shape) == (1, 1)
+        for name, p in reference_paths(trainer.params).items():
+            assert torch.equal(tree[name].full_tensor(), p), name
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("model_parallel", [1, 4, 16])
