@@ -113,7 +113,21 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               sequential stack, 112 launches; ``recover`` of the trained
               parameters from a checkpoint onto the (1, 1) mesh, every
               leaf equal and in its placements.  A failed NCCL start
-              fails the run.
+              fails the run;
+17. launch -- the launch tooling and the static analysis on the card's
+              host, each in a process of its own (a default process group
+              starts once a process, and phase 16's was in this one), all
+              at once: ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
+              decode_32k on the (16, 16) and (2, 16, 16) meshes of a fake
+              256- and 512-rank group and for qwen2-vl-2b x train_4k on the
+              (16, 16) one (fake tensors on the card's device type: nothing
+              allocated, no kernel launched), its cost mode for rwkv6-1.6b
+              x decode_32k, then ``repro_torch.launch.roofline`` over those
+              rows; an error row, a wrong ``n_devices`` or zero FLOPs or
+              peak fails the run (the CLI writes error rows with exit 0);
+              ``python -m repro_torch.analysis src/repro_torch`` must find
+              nothing.  Each row is printed beside the card's name and
+              power limit.
 
 Phases 3 to 16 are the main path: every kernel's launch count is set to
 0 just before each and read just after (phase 13: just around the restored
@@ -137,6 +151,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,11 +159,16 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet): HBM3 bandwidth, float32 outside the tensor cores, and bf16 on
-# the tensor cores (dense).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
+# data sheet), from the port's roofline, which holds the card's figures:
+# HBM3 bandwidth, float32 outside the tensor cores, and bf16 on the tensor
+# cores (dense).
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.launch.roofline import CHIP_F32_FLOPS as PEAK_F32_FLOP_PER_S
+    from repro_torch.launch.roofline import CHIP_FLOPS as PEAK_BF16_FLOP_PER_S
+    from repro_torch.launch.roofline import HBM_BPS as PEAK_BYTES_PER_S
+except ImportError:         # no checkout beside the script: main() says so
+    PEAK_BYTES_PER_S = PEAK_F32_FLOP_PER_S = PEAK_BF16_FLOP_PER_S = None
 
 N_ROWS = 1_000_000          # the repo's stated clustering scale
 M_RANGE = range(4, 13)      # its candidate model orders
@@ -3147,6 +3167,110 @@ def phase_dist(device) -> dict[str, int]:
     return {n: counts.get(n, 0) for n in _kernel_modules()}
 
 
+# phase 17's dry-run cells: (arch, shape, extra CLI flags, meshes)
+DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k", ["--both-meshes"],
+                 {"16x16": 256, "2x16x16": 512}),
+                ("qwen2-vl-2b", "train_4k", [], {"16x16": 256}))
+LAUNCH_TIMEOUT_S = 600
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_launch_tooling(out_dir: str) -> None:
+    """Phase 17 (see the module's docstring); the dry-run and roofline
+    JSON go to ``out_dir``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t_start = time.perf_counter()
+    runs = {}
+    for arch, shape, flags, _ in DRYRUN_CELLS:
+        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", shape, *flags,
+                      "--out", f"{out_dir}/dryrun_{arch}.json"]
+    runs["cost"] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--cost", "--arch", "rwkv6-1.6b", "--shape", "decode_32k",
+                    "--out", f"{out_dir}/cost.json"]
+    runs["analysis"] = [sys.executable, "-m", "repro_torch.analysis",
+                        "src/repro_torch"]
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for name, cmd in runs.items()}
+    outs, walls = {}, {}
+    try:
+        for name, proc in procs.items():
+            outs[name], _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+            walls[name] = time.perf_counter() - t_start
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, out in outs.items():
+        tail = "\n".join(out.strip().splitlines()[-3:])
+        print(f"[launch] {name}: exit {procs[name].returncode} after "
+              f"{walls[name]:.1f} s; {tail}")
+    analysis = outs["analysis"]
+    check(procs["analysis"].returncode == 0 and " 0 violations" in analysis,
+          f"the port's analysis found something:\n{analysis[-3000:]}")
+    smi = smi_line()
+    mem = []
+    for arch, shape, _, meshes in DRYRUN_CELLS:
+        check(procs[arch].returncode == 0,
+              f"the dry run of {arch} exited {procs[arch].returncode}:\n"
+              f"{outs[arch][-3000:]}")
+        with open(f"{out_dir}/dryrun_{arch}.json") as f:
+            rows = json.load(f)
+        check(sorted(r["mesh"] for r in rows) == sorted(meshes),
+              f"{arch} x {shape}: rows for {[r['mesh'] for r in rows]}")
+        for r in rows:
+            check("error" not in r, f"{arch} x {shape} @ {r['mesh']}: "
+                  f"error row {r.get('error')}")
+            check(r["n_devices"] == meshes[r["mesh"]],
+                  f"{arch} @ {r['mesh']}: {r['n_devices']} devices")
+            check(r["flops_total"] > 0 and r["bytes_per_device"]["peak"] > 0,
+                  f"{arch} @ {r['mesh']}: zero FLOPs or peak: {r}")
+            print(f"[launch] dry run {json.dumps(r)}")
+            print(f"[launch] card: {smi}")
+        mem += rows
+    check(procs["cost"].returncode == 0, f"the cost run exited "
+          f"{procs['cost'].returncode}:\n{outs['cost'][-3000:]}")
+    with open(f"{out_dir}/cost.json") as f:
+        cost = json.load(f)
+    check(len(cost) == 1 and "error" not in cost[0]
+          and cost[0]["flops_total"] > 0, f"cost row {cost}")
+    print(f"[launch] cost {json.dumps(cost[0])}")
+    print(f"[launch] card: {smi}")
+    with open(f"{out_dir}/mem.json", "w") as f:
+        json.dump(mem, f)
+    with open(f"{out_dir}/cost_and_mem.json", "w") as f:
+        json.dump(cost + mem, f)
+    roof = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline",
+         "--cost", f"{out_dir}/cost_and_mem.json",
+         "--mem", f"{out_dir}/mem.json", "--out", f"{out_dir}/roofline.json",
+         "--markdown"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    check(roof.returncode == 0, f"the roofline exited {roof.returncode}:\n"
+          f"{roof.stderr[-3000:]}")
+    with open(f"{out_dir}/roofline.json") as f:
+        terms = json.load(f)
+    check(len(terms) == len(cost) + len(mem) and all(
+        math.isfinite(t["roofline_mfu_bound"]) for t in terms),
+        f"roofline rows {terms}")
+    for t in terms:
+        print(f"[launch] roofline {json.dumps(t)}")
+        print(f"[launch] card: {smi}")
+    print(roof.stdout.strip())
+    print(f"[launch] phase done in {time.perf_counter() - t_start:.1f} s")
+
+
 def launch_floor(device) -> float:
     """Device ms of a one-element ``add_``, replayed as ``cuda_ms`` replays
     the kernels: the least a launch costs, whatever it computes."""
@@ -3195,6 +3319,8 @@ def main() -> int:
     train = phase_train(device)
     dist_counts = phase_dist(device)
     paths += [train, dist_counts]
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_launch_tooling(out_dir)
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         row["train_launches"] = train[row["name"]]
@@ -3202,10 +3328,7 @@ def main() -> int:
         check(row["launches"] > 0, f"the main path never launched {row['name']}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,7 +39,7 @@ def cluster_assign_cuda(X: torch.Tensor, C: torch.Tensor
     """X (N, d) f32 points, C (M, d) f32 centroids, both contiguous on one
     CUDA device -> (labels (N,) int32, d2 (N,) f32).  Raises on anything
     the kernel does not take: M <= 64 and d <= 16."""
-    global launches
+    global launches  # repro-lint: disable=DET103 -- a launch counter
     if not (X.is_cuda and C.is_cuda) or X.device != C.device:
         raise ValueError("cluster_assign_cuda needs X and C on one CUDA device")
     if X.dtype != torch.float32 or C.dtype != torch.float32:

@@ -75,7 +75,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     start 16-byte aligned.  ``instance`` (bfloat16 only): run the kernel
     compiled for that many 16-column groups, one of ``BF16_INSTANCES``
     holding D, instead of the one D picks."""
-    global launches
+    global launches  # repro-lint: disable=DET103 -- a launch counter
     ts = (q, k, v)
     if not all(t.is_cuda for t in ts) or not (q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "

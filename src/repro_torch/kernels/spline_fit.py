@@ -38,7 +38,7 @@ def nat_spline_fit_cuda(x: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """x (N,) f32 knots, Y (R, N) f32 rows, both contiguous on one CUDA
     device -> (R, max(N-1, 1), 4) f32 coefficients.  Raises on anything the
     kernel does not take: 1 <= N <= 16."""
-    global launches
+    global launches  # repro-lint: disable=DET103 -- a launch counter
     if not (x.is_cuda and Y.is_cuda) or x.device != Y.device:
         raise ValueError("nat_spline_fit_cuda needs x and Y on one CUDA device")
     if x.dtype != torch.float32 or Y.dtype != torch.float32:

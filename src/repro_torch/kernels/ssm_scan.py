@@ -51,7 +51,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``return_state``, the final state (B, H, P, N) float32.  Raises on
     anything the kernel does not take: P or N above 64, chunk above 1024,
     inputs that require grad (there is no backward)."""
-    global launches
+    global launches  # repro-lint: disable=DET103 -- a launch counter
     ts = [x, dt, A, B, C] + ([] if initial_state is None else [initial_state])
     if not all(t.is_cuda for t in ts) or len({t.device for t in ts}) != 1:
         raise ValueError("ssd_scan_cuda needs every input on one CUDA device")

@@ -38,7 +38,7 @@ def batched_predict_argmax_cuda(values: torch.Tensor, idx: torch.Tensor
     both contiguous on one CUDA device -> (best (B, S) f32, argk (B, S)
     int32).  Raises on anything the kernel does not take: P = 0, and sizes
     of 2**31 elements or more."""
-    global launches
+    global launches  # repro-lint: disable=DET103 -- a launch counter
     if not (values.is_cuda and idx.is_cuda) or values.device != idx.device:
         raise ValueError("batched_predict_argmax_cuda needs values and idx on "
                          "one CUDA device")

@@ -138,6 +138,13 @@ def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     return _out(p, o), cache
 
 
+# the logical axes of each cache leaf, as the reference's cache init
+# records them (``dist.sharding`` maps them onto a mesh)
+GQA_CACHE_AXES = {"k": ("batch", "seq_cache", "kv_heads", "head_dim"),
+                  "v": ("batch", "seq_cache", "kv_heads", "head_dim"),
+                  "len": (None,)}
+
+
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
                    device, n: int | None = None) -> dict:
     """Zeroed KV cache; with ``n``, ``n`` caches stacked on a leading axis."""
@@ -277,6 +284,11 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     o = torch.einsum("bshr,rhk->bshk", o_lat, wb_v.to(f32)).to(x.dtype)
     cache["len"] += 1
     return _out(p, o), cache
+
+
+MLA_CACHE_AXES = {"ckv": ("batch", "seq_cache", "kv_lora"),
+                  "krope": ("batch", "seq_cache", None),
+                  "len": (None,)}
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,

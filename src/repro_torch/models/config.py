@@ -133,3 +133,32 @@ class ModelConfig:
             else:
                 n += ffn_dense
         return n
+
+    @property
+    def n_active_params_est(self) -> int:
+        """Active parameters per token (MoE top-k) for 6*N_active*D."""
+        if not self.n_experts:
+            return self.n_params_dense_est
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = (d * self.q_lora_rank
+                + self.q_lora_rank * self.n_heads
+                * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank * self.n_heads
+                * (self.qk_nope_head_dim + self.v_head_dim)
+                + self.n_heads * self.v_head_dim * d) \
+            if self.attn_type == "mla" else \
+            (d * self.n_heads * self.head_dim
+             + 2 * d * self.n_kv_heads * self.head_dim
+             + self.n_heads * self.head_dim * d)
+        n = emb
+        for layer in range(L):
+            n += attn
+            if layer >= self.first_k_dense:
+                n += 3 * d * self.moe_d_ff * (self.experts_per_token
+                                              + self.n_shared_experts)
+                n += d * self.n_experts
+            else:
+                n += 3 * d * self.d_ff
+        return n

@@ -318,6 +318,25 @@ class Model(nn.Module):
                 n=cfg.n_layers // cfg.hybrid_attn_every)
         return cache
 
+    def cache_axes(self) -> dict[str, tuple]:
+        """{cache path: logical axes} of every leaf ``init_cache`` makes,
+        the second value of the reference's ``Model.init_cache``: each
+        leaf's axes behind the leading ``"layers"`` axis of its stack."""
+        cfg = self.cfg
+        if cfg.rwkv:
+            stacks = {"layers": rwkv_mod.RWKV6_STATE_AXES}
+        elif self._dense:
+            one = (attn.MLA_CACHE_AXES if cfg.attn_type == "mla"
+                   else attn.GQA_CACHE_AXES)
+            stacks = {name: one for name in self._dense_stacks()}
+        else:
+            stacks = {"layers": ssm_mod.MAMBA2_STATE_AXES}
+            if cfg.hybrid_attn_every:
+                stacks["shared_attn"] = attn.GQA_CACHE_AXES
+        return {f"{name}.{leaf}": ("layers",) + axes
+                for name, leaves in stacks.items()
+                for leaf, axes in leaves.items()}
+
     def _rwkv_stack(self, x: torch.Tensor, layers: dict, carry: bool
                     ) -> torch.Tensor:
         """The RWKV6 layers, each writing its WKV and token-shift states

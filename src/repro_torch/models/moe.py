@@ -67,6 +67,15 @@ def expert_capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)          # round up to multiple of 8
 
 
+def expert_counts(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n_experts)`` for ids below
+    ``n_experts``, with its size fixed by ``n_experts`` alone: bincount
+    sizes its output by the largest id, which a CUDA stream capture or a
+    fake tensor cannot read."""
+    return torch.zeros(n_experts, dtype=torch.long, device=ids.device
+                       ).scatter_add_(0, ids, torch.ones_like(ids))
+
+
 def _route(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
     """Router probabilities (T, E) f32 and the renormalised top-k (weights,
     expert ids), each (T, k).  Ties go to the lower expert id, as
@@ -108,7 +117,7 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], topv.reshape(-1)[order]
-    counts = torch.bincount(se, minlength=E)
+    counts = expert_counts(se, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=x.device) - starts[se]
     slot = torch.where(pos < C, se * C + pos, E * C)     # E*C: overflow row
@@ -146,7 +155,7 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     out = y.reshape(B, S, d)
     if hasattr(p, "shared"):
         out = out + ffn_forward(p.shared, x)
-    me = torch.bincount(flat_e, minlength=E).float() / (T * k)
+    me = expert_counts(flat_e, E).float() / (T * k)
     aux = E * torch.sum(me * probs.mean(0))
     return out, aux
 

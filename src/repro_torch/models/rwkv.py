@@ -119,6 +119,13 @@ def rwkv6_channel_mix(p: Rwkv6, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
+# the logical axes of each state leaf, as the reference's state init
+# records them
+RWKV6_STATE_AXES = {"wkv": ("batch", "heads", None, None),
+                    "shift_t": ("batch", "embed"),
+                    "shift_c": ("batch", "embed")}
+
+
 def rwkv6_state_init(cfg: ModelConfig, batch: int, *, device,
                      n: int | None = None) -> dict:
     """Zeroed decode state; with ``n``, ``n`` states stacked on a leading

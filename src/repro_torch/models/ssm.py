@@ -130,6 +130,12 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, cfg: ModelConfig,
     return out, new_state, win[:, 1:, :]
 
 
+# the logical axes of each state leaf, as the reference's state init
+# records them
+MAMBA2_STATE_AXES = {"ssm": ("batch", "heads", None, None),
+                     "conv": ("batch", None, "inner")}
+
+
 def mamba2_state_init(cfg: ModelConfig, batch: int, *, device,
                       n: int | None = None) -> dict:
     """Zeroed decode state; with ``n``, ``n`` states stacked on a leading

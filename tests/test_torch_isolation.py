@@ -67,11 +67,21 @@ def test_port_files_import_neither_jax_nor_the_jax_package():
                           for n in names if n.split(".")[0] in FORBIDDEN]
     assert not offenders, offenders
     assert len(_port_files()) > 20
-    # the training and distribution slices are among the files checked
-    for rel in ("optim/adamw.py", "optim/grad_utils.py", "optim/schedule.py",
+    # the training, distribution, launch-tooling and analysis slices are
+    # among the files checked
+    analysis = ["analysis/" + f for f in (
+        "__init__.py", "__main__.py", "astutil.py", "base.py", "cli.py",
+        "config.py", "dataflow.py", "engine.py", "report.py")]
+    analysis += ["analysis/rules/" + f for f in (
+        "__init__.py", "determinism.py", "interprocedural.py",
+        "kernel_contract.py", "locks.py", "meta.py", "parity.py",
+        "tracing.py", "units.py")]
+    for rel in ["optim/adamw.py", "optim/grad_utils.py", "optim/schedule.py",
                 "train/loop.py", "train/elastic.py", "train/straggler.py",
                 "launch/train.py", "launch/mesh.py", "dist/sharding.py",
-                "dist/collectives.py", "dist/pipeline_par.py"):
+                "dist/collectives.py", "dist/pipeline_par.py",
+                "launch/shapes.py", "launch/roofline.py",
+                "launch/dryrun.py"] + analysis:
         assert PORT / rel in _port_files(), rel
 
 

@@ -155,6 +155,22 @@ def test_router_ties_go_to_the_lower_expert_as_in_jax():
     assert kept.tolist() == [True] * 8 + [False] * 24
 
 
+@pytest.mark.parametrize("E,n,seed", [(8, 1, 0), (8, 200, 1), (256, 64, 2),
+                                      (4, 0, 3)])
+def test_expert_counts_equal_bincount(E, n, seed):
+    """``expert_counts`` (a scatter-add into E zeros, sized by E alone) is
+    ``torch.bincount(ids, minlength=E)``, experts no token chose
+    included; under a fake tensor mode it runs where bincount raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, E, n))
+    got = tmoe.expert_counts(ids, E)
+    assert got.dtype == torch.long and torch.equal(
+        got, torch.bincount(ids, minlength=E))
+    with FakeTensorMode() as mode:
+        fake = mode.from_tensor(ids)
+        assert tmoe.expert_counts(fake, E).shape == (E,)
+
+
 def test_expert_capacity_is_the_reference_s():
     from repro.models import moe as jmoe
     for gate in GATES:

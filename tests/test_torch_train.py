@@ -293,13 +293,57 @@ def _mini(remat: bool = False, dtype=torch.float32, **over):
                                remat=remat, dtype=dtype, **over)
 
 
+@functools.lru_cache(maxsize=None)
+def _jit_grad(cfg):
+    """The reference's jitted gradient of ``loss_fn`` for ``cfg``, made
+    once (the float64 one under jax x64)."""
+    model = jbuild(cfg)
+    return jax.jit(jax.grad(lambda p, b: jloss(model, p, b)[0]))
+
+
+def _reference_grad_noise(cfg, params, batch: dict, micro: int) -> float:
+    """The reference's own float32 error against float64 (jax x64) in
+    relative L2 over the whole gradient of one step: ``batch`` split into
+    ``micro`` equal parts, each part's gradient averaged, at ``params``."""
+    def grad(cfg, p):
+        dtype = cfg.dtype
+        total = 0
+        for i in range(micro):
+            b = {k: jnp.asarray(np.split(v, micro)[i],
+                                dtype if v.dtype == np.float32 else v.dtype)
+                 for k, v in batch.items()}
+            g = jpaths(_jit_grad(cfg)(p, b))
+            total = total + np.concatenate(
+                [np.asarray(x, np.float64).ravel() for _, x in sorted(
+                    g.items())])
+        return total / micro
+    g32 = grad(cfg, params)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        p64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
+                           params)
+        g64 = grad(dataclasses.replace(cfg, dtype=jnp.float64), p64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    return _rel_l2(g32, g64)
+
+
 @pytest.mark.parametrize("micro", [1, 2])
 def test_train_steps_match_reference(micro):
     """Three steps from the reference's weights and AdamW state (carried
     over with ``opt_state_from_reference``), against its ``make_train_step``
     in float32: parameters, master and moments after each step, and the
     metrics.  Moments in float32 here, so that one rounding of bf16 does
-    not hide the comparison."""
+    not hide the comparison.
+
+    ``grad_norm`` is held to the bound ``test_loss_and_grads_match_reference``
+    holds each gradient to: 1e-4 plus twice the reference's own float32
+    error against float64, on the step's weights and batch.  A gap of
+    relative L2 ``tol`` between the two gradients bounds the gap between
+    their norms by ``tol`` of the reference's norm (triangle inequality).
+    MKL's AVX-512 sgemm alone puts the port's float32 gradients ~2.5x
+    farther from float64 than with every product summed exactly, and the
+    norms 1.4e-5 apart; the rest of the metrics keep 1e-5."""
     jm, _ = jax_model("minitron-4b", "float32", False, remat=False)
     jt = jloop.TrainConfig(
         opt=dataclasses.replace(jloop.AdamWConfig(), moment_dtype=jnp.float32,
@@ -317,12 +361,16 @@ def test_train_steps_match_reference(micro):
     tstep = make_train_step(model, tt)
     for i in range(3):
         batch = _batch(model.cfg, seed=20 + i, B=4)
+        norm_tol = 1e-4 + 2 * _reference_grad_noise(jm.cfg, jparams, batch,
+                                                     micro)
         jparams, jopt, jmet = jstep(
             jparams, jopt, {k: jnp.asarray(v) for k, v in batch.items()})
         topt, tmet = tstep(topt, _torch_batch(batch))
-        for key in ("loss", "ce", "grad_norm", "lr_scale"):
+        for key in ("loss", "ce", "lr_scale"):
             assert float(tmet[key]) == pytest.approx(float(jmet[key]),
                                                      rel=1e-5, abs=1e-7), key
+        assert float(tmet["grad_norm"]) == pytest.approx(
+            float(jmet["grad_norm"]), rel=norm_tol), norm_tol
         got = reference_paths(dict(model.named_parameters()))
         state = opt_state_to_reference(topt)
         assert state["step"] == int(jopt["step"]) == i + 1
