@@ -114,33 +114,59 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               parameters from a checkpoint onto the (1, 1) mesh, every
               leaf equal and in its placements.  A failed NCCL start
               fails the run;
-17. launch -- the launch tooling and the static analysis on the card's
+17. tp     -- ``repro_torch.dist.tensor_parallel``: qwen2-vl-2b whole split
+              over a (1, 2) ``("data", "model")`` mesh on ``cuda``, two
+              processes sharing the card on a gloo group (NCCL refuses two
+              ranks on one device: "Duplicate GPU detected"; gloo takes
+              the CUDA tensors, the kernels run on the card), 6 q heads
+              over 1 kv head, half the MLP and half the vocabulary a rank:
+              phase 16's 4 train steps (112 ``flash_attention`` a rank and
+              step, as unsplit), their bf16 losses within
+              ``TP_BF16_LOSS_RTOL`` of phase 16's unsharded ones; one
+              microbatch's forward and backward and a prefill and decode
+              step with every launch held to its plain version on the
+              same activations (the local (8, 2048, 6/1, 128)); a prefill
+              of 8 x 2048 (28 launches) and 8 greedy decode steps, equal
+              on both ranks; a float32 control at 2 layers (its weights
+              rescaled to std 1/sqrt(fan-in), ``_tp_f32_control``), split
+              against unsplit on the card, within 1e-5 with equal tokens.
+              Each
+              rank's step p50, peak memory and prefill time are printed
+              beside the card's name and power limit; two processes share
+              its SMs, so none is a speed figure for the split.  A rank's
+              failure fails the run;
+18. launch -- the launch tooling and the static analysis on the card's
               host, each in a process of its own (a default process group
               starts once a process, and phase 16's was in this one), all
               at once: ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
               decode_32k on the (16, 16) and (2, 16, 16) meshes of a fake
-              256- and 512-rank group and for qwen2-vl-2b x train_4k on the
-              (16, 16) one (fake tensors on the card's device type: nothing
-              allocated, no kernel launched), its cost mode for rwkv6-1.6b
-              x decode_32k, then ``repro_torch.launch.roofline`` over those
-              rows; an error row, a wrong ``n_devices`` or zero FLOPs or
-              peak fails the run (the CLI writes error rows with exit 0);
+              256- and 512-rank group, for qwen2-vl-2b x train_4k on both
+              and for llama3-405b x decode_32k on the (16, 16) one (fake
+              tensors on the card's device type: nothing allocated, no
+              kernel launched; the dense families split over ``model``),
+              its cost mode for rwkv6-1.6b x decode_32k, then
+              ``repro_torch.launch.roofline`` over those rows; an error
+              row, a wrong ``n_devices`` or zero FLOPs or peak fails the
+              run (the CLI writes error rows with exit 0), and so does a
+              qwen2-vl-2b x train_4k row past 4.0e14 FLOPs or 95 GB a rank
+              at 16x16, or a 2x16x16 row whose FLOPs are not half of it;
               ``python -m repro_torch.analysis src/repro_torch`` must find
               nothing.  Each row is printed beside the card's name and
               power limit.
 
-Phases 3 to 16 are the main path: every kernel's launch count is set to
+Phases 3 to 17 are the main path: every kernel's launch count is set to
 0 just before each and read just after (phase 13: just around the restored
 model's prefill; phase 15: around each timed train step; phase 16: around
-each sharded step and the pipeline), and a kernel that the path did not
-launch fails the run.  Phases 3 to 6 end with one
+each sharded step and the pipeline; phase 17: in each rank's process,
+around each split step and the timed serve run, summed over the ranks),
+and a kernel that the path did not launch fails the run.  Phases 3 to 6 end with one
 more, profiled run of a fit, a fleet or a training, phases 7-12 and 14
 profile decode steps and a prefill, and phase 15 a train step, to report
 how much of the wall time the card spent running kernels.  Before phase 3 a
 one-element ``add_`` is timed as the kernels are: the floor of one launch.
 The last lines are a JSON ``kernels`` summary (``launches`` over the whole
 main path, ``train_launches`` those of phase 15's timed steps,
-``dist_launches`` phase 16's), the
+``dist_launches`` phase 16's, ``tp_launches`` phase 17's), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  The
 script needs a CUDA card and the checkout's ``src/`` beside it.
 """
@@ -784,7 +810,8 @@ def phase_kernel_flash_attention(device) -> dict:
     in bf16 also at the prefill shapes of the dense, MoE, audio and
     vision-language serve phases (minitron-4b's 24 heads over 8 kv heads of
     128, mixtral-8x22b's 48 over 8, musicgen-large's 32 heads of 64 on the
-    KD = 4 instance, qwen2-vl-2b's 12 over 2 of 128, causal) and of MLA
+    KD = 4 instance, qwen2-vl-2b's 12 over 2 of 128 and a rank's 6 over 1
+    of them at ``model`` = 2, phase 17's, causal) and of MLA
     (deepseek-v3-671b's 128 heads at q-k width 192, causal: the KD = 12
     instance, held to the padded KD = 16 one and timed beside it), each
     gated to the instance its D takes, reported and not gated on time.  The
@@ -804,6 +831,8 @@ def phase_kernel_flash_attention(device) -> dict:
             ((48, 8, 128), "MoE GQA shape (mixtral-8x22b)", None),
             ((32, 32, 64), "audio shape (musicgen-large)", None),
             ((12, 2, 128), "VLM GQA shape (qwen2-vl-2b)", None),
+            ((6, 1, 128), "VLM GQA shape, a rank's heads at model = 2 "
+             "(qwen2-vl-2b, phase 17)", None),
             ((128, 128, 192), "MLA shape (deepseek-v3-671b)", 16)):
         r = _attention_case(device, torch.bfloat16,
                             (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, hq, hkv,
@@ -2900,7 +2929,7 @@ def _dist_steps(device, mesh, plan, flat_out: list):
     bit; the optimizer state rests as DTensors in the step's placements.
     ``flat_out`` receives the last step's flat float32 gradient (the input
     of its ``bucketed_allreduce``) and its spec.  Returns (the sharded
-    model, its steps' launches)."""
+    model, its steps' launches, the unsharded steps' losses)."""
     import torch
     from torch.distributed.tensor import DTensor
     import repro_torch.train.loop as loop
@@ -2989,9 +3018,10 @@ def _dist_steps(device, mesh, plan, flat_out: list):
                 for n, p in model.named_parameters()]
         flat_out[:] = [seen[0], spec]
         total = {n: sum(c[n] for c in counts) for n in LM_KERNELS}
+        losses = [float(lw) for lw, _ in want[0]]
         del want, opt, step, seen
         torch.cuda.empty_cache()
-        return model, total
+        return model, total, losses
 
 
 def _dist_collectives(device, mesh, plan, flat, spec) -> None:
@@ -3132,10 +3162,11 @@ def _dist_recover(device, model) -> None:
           f"first {bad[:3]}")
 
 
-def phase_dist(device) -> dict[str, int]:
+def phase_dist(device) -> tuple[dict[str, int], list[float]]:
     """Phase 16 (see the module's docstring): the launches of the sharded
     train steps and of the pipeline (``reset_launch_counts`` just before
-    each, read just after)."""
+    each, read just after), and the unsharded steps' losses (phase 17's
+    bf16 band)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -3151,7 +3182,7 @@ def phase_dist(device) -> dict[str, int]:
               f"the host mesh is {mesh}, backend {dist.get_backend()}")
         plan = _dist_bridge(device)
         flat = []
-        model, counts = _dist_steps(device, mesh, plan, flat)
+        model, counts, losses = _dist_steps(device, mesh, plan, flat)
         torch.cuda.reset_peak_memory_stats(device)
         _dist_collectives(device, mesh, plan, *flat)
         del flat
@@ -3164,13 +3195,312 @@ def phase_dist(device) -> dict[str, int]:
     finally:
         dist.destroy_process_group()
     print(f"[dist] phase done in {time.perf_counter() - t_start:.1f} s")
-    return {n: counts.get(n, 0) for n in _kernel_modules()}
+    return {n: counts.get(n, 0) for n in _kernel_modules()}, losses
 
 
-# phase 17's dry-run cells: (arch, shape, extra CLI flags, meshes)
-DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k", ["--both-meshes"],
+# --------------------------------------------------------------------- #
+# phase 17: tp
+# --------------------------------------------------------------------- #
+TP_RANKS = 2                    # processes sharing the one card
+TP_SERVE_STEPS = 8              # greedy decode steps after the prefill
+TP_F32_LAYERS = 2               # the float32 control's depth
+TP_F32_RTOL = 1e-5
+# the split bf16 steps' losses against phase 16's unsharded steps' from
+# the same seed and batches, relative: one bf16 rounding of the loss, the
+# band tests/test_torch_tensor_parallel.py holds the CPU to
+# (BF16_LOSS_RTOL)
+TP_BF16_LOSS_RTOL = 2.0 ** -8
+TP_TIMEOUT_S = 400              # both ranks; a passing phase takes < 150 s
+TP_COLLECTIVE_TIMEOUT_S = 120   # a rank waiting past this raises
+
+
+def tp_worker(rank: int, directory: str) -> int:
+    """One rank of phase 17, in a process of its own: joins the gloo group
+    on a ``FileStore`` in ``directory``, runs ``_tp_rank`` and writes its
+    results to ``rank<r>.json`` there.  A failure raises (exit 1)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False     # as main() sets it
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{directory}/store", TP_RANKS),
+        rank=rank, world_size=TP_RANKS,
+        timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+    try:
+        out = _tp_rank(rank, device)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{directory}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _tp_rank(rank: int, device) -> dict:
+    """Phase 17 on one rank (see ``phase_tp``): -> its losses, launches,
+    times and peaks."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    import repro_torch.train.loop as loop
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import build_model
+
+    tag = f"[tp rank {rank}]"
+    mesh = init_device_mesh(torch.device(device).type, (1, TP_RANKS),
+                            mesh_dim_names=("data", "model"))
+    cfg = _train_cfg(TRAIN_ARCH)
+    tcfg = loop.TrainConfig(microbatches=TRAIN_MICRO,
+                            warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=None, mesh=mesh)
+    _, opt = loop.init_train_state(model, 0, tcfg)
+    torch.cuda.synchronize()
+    plan = model.split_plan
+    check(model.cfg.use_kernel is True and all(plan.split.values()),
+          f"{tag} qwen2-vl-2b at model = {TP_RANKS} does not split every "
+          f"region on the kernel route: {plan.describe()}")
+    n_local = sum(p.numel() for p in model.parameters())
+    print(f"{tag} {plan.describe()}; {n_local / 1e9:.3f} B parameters on "
+          f"this rank, built whole from the seed and cut in "
+          f"{time.perf_counter() - t0:.2f} s")
+    step = loop.make_train_step(model, tcfg, mesh=mesh)
+    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+    want = train_launches(cfg, TRAIN_MICRO)
+    counts = dict.fromkeys(_kernel_modules(), 0)
+    mets, times = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(DIST_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(opt, batches[i % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = _lm_counts(launch_counts())
+        check(got == want, f"{tag} split step {i} launched {got}, not {want}")
+        for n, c in got.items():
+            counts[n] += c
+        mets.append({k: float(v) for k, v in m.items()})
+    train_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    p50 = statistics.median(times[1:])
+    print(f"{tag} {DIST_STEPS} split steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_MICRO} microbatches, remat: losses "
+          + " ".join(f"{m['loss']:.6f}" for m in mets) + "; grad norms "
+          + " ".join(f"{m['grad_norm']:.6f}" for m in mets) + "; step times "
+          + " ".join(f"{t * 1e3:.1f}" for t in times) + f" ms (p50 of steps "
+          f"2-{DIST_STEPS}: {p50 * 1e3:.1f} ms); peak memory "
+          f"{train_peak:.3f} GB; {want['flash_attention']} flash_attention a "
+          f"step")
+    half = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+    reset_launch_counts()
+    _checked_train_grads(model, half, f"bf16 split, rank {rank}")
+    reset_launch_counts()
+    del opt, step, batches, half
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=device)
+    pe = serve_patch_embeds(cfg, device)
+    serve(model, prompts, 2, patch_embeds=pe)       # first use of each path
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe)
+    got = _lm_counts(launch_counts())
+    serve_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    want_serve = lm_launches(cfg, 1, TP_SERVE_STEPS)
+    check(got == want_serve, f"{tag} a split prefill and {TP_SERVE_STEPS} "
+          f"decode steps launched {got}, not {want_serve}")
+    for n, c in got.items():
+        counts[n] += c
+    print(f"{tag} split prefill of {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"({cfg.n_patches} patch embeddings a row) in {res.prefill_ms:.3f} "
+          f"ms, {TP_SERVE_STEPS} greedy decode steps p50 "
+          f"{res.decode_p50_ms():.3f} ms; peak memory {serve_peak:.3f} GB; "
+          f"launches {got}")
+    check(res.tokens.shape == (SERVE_BATCH, TP_SERVE_STEPS + 1)
+          and bool((res.tokens >= 0).all()
+                   and (res.tokens < cfg.vocab_size).all()),
+          f"{tag} greedy tokens {tuple(res.tokens.shape)} out of range")
+    reset_launch_counts()
+    _check_on_activations(model, prompts, f"bf16 split, rank {rank}", pe)
+    reset_launch_counts()
+    out = {"losses": [m["loss"] for m in mets],
+           "grad_norms": [m["grad_norm"] for m in mets],
+           "step_p50_ms": p50 * 1e3, "train_peak_gb": train_peak,
+           "serve_peak_gb": serve_peak, "prefill_ms": res.prefill_ms,
+           "decode_p50_ms": res.decode_p50_ms(), "tokens": res.tokens.tolist(),
+           "counts": counts}
+    del model, res, prompts, pe
+    torch.cuda.empty_cache()
+    out["control"] = _tp_f32_control(device, mesh, tag)
+    return out
+
+
+def _conditioned(model) -> None:
+    """Each stacked layer weight of ``model`` (drawn at the reference's
+    std 1/sqrt(depth)) rescaled in place to std 1/sqrt(its fan-in, the
+    leading dim of its whole shape), a split block as its whole weight.
+    At 2 layers the reference's init leaves the stacked weights at std
+    0.71: the attention scores reach the thousands, every softmax row is
+    one key, and a float32 near-tie between two keys goes either way with
+    the order of a product's sum (split against unsplit on the card:
+    gradient norms 8.0e-3 and logits 3.5e-4 apart, the loss 7.8e-8), as
+    MLA's do at its init (phase 14)."""
+    import torch
+    from repro_torch.models.params import whole_shape
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            kind, scale = p.init_rule
+            if name.startswith("layers.") and kind == "normal":
+                p.mul_(float(whole_shape(p)[0]) ** -0.5 / scale)
+
+
+def _tp_f32_control(device, mesh, tag: str) -> dict:
+    """qwen2-vl-2b at full width and ``TP_F32_LAYERS`` layers in float32,
+    its weights ``_conditioned``, split over ``mesh`` and unsplit on this
+    rank, from the same seed: two
+    train steps (losses, gradient norms; AdamW's eps 1), then a prefill
+    of the serve
+    prompts and ``TP_SERVE_STEPS`` greedy decode steps (last-position
+    logits, tokens), the split ones within ``TP_F32_RTOL`` (relative; the
+    logits of their scale) of the unsplit ones, the tokens equal."""
+    import torch
+    import repro_torch.train.loop as loop
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = _train_cfg(TRAIN_ARCH, TP_F32_LAYERS, torch.float32)
+    # AdamW's eps 1, so that an update is linear in its gradient: at 1e-8
+    # the first update is each gradient element's sign times the rate, and
+    # a zero-initialised bias's near-cancelling elements take either sign
+    # in either order of sum (tests/test_torch_tensor_parallel.py's EPS)
+    tcfg = loop.TrainConfig(opt=AdamWConfig(eps=1.0),
+                            microbatches=TRAIN_MICRO, warmup_steps=1,
+                            total_steps=TRAIN_STEPS)
+    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=device)
+    pe = serve_patch_embeds(cfg, device).float()
+    runs = []
+    for m in (mesh, None):
+        model = build_model(cfg, device, seed=0, mesh=m)
+        _conditioned(model)
+        model.requires_grad_(True)
+        opt = adamw_init(model, tcfg.opt)
+        step = loop.make_train_step(model, tcfg, mesh=m)
+        mets = []
+        for b in batches:
+            opt, met = step(opt, b)
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        del opt, step
+        model.requires_grad_(False)
+        res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe,
+                    keep_logits=True)
+        runs.append((mets, [res.prefill_logits] + res.decode_logits,
+                     res.tokens))
+        del model, res
+        torch.cuda.empty_cache()
+    (got_m, got_l, got_t), (want_m, want_l, want_t) = runs
+    gaps = {"loss": max(abs(a[0] - b[0]) / abs(b[0])
+                        for a, b in zip(got_m, want_m)),
+            "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                             for a, b in zip(got_m, want_m)),
+            "logits": max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(got_l, want_l))}
+    same = bool(torch.equal(got_t, want_t))
+    print(f"{tag} float32 control at {TP_F32_LAYERS} layers, full width: "
+          f"split against unsplit on this rank, 2 steps and a prefill with "
+          f"{TP_SERVE_STEPS} greedy decode steps: relative gaps "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (gate {TP_F32_RTOL:g}); greedy tokens equal: {same}")
+    check(all(v <= TP_F32_RTOL for v in gaps.values()) and same,
+          f"{tag} the split float32 model differs from the unsplit one: "
+          f"{gaps}, tokens equal {same}")
+    return gaps
+
+
+def phase_tp(device, unsplit_losses: list[float]) -> dict[str, int]:
+    """Phase 17 (see the module's docstring): ``TP_RANKS`` processes
+    (``tp_worker``) share the card on a gloo group; -> the launches of
+    their timed split steps and serve runs, summed over the ranks (each
+    rank resets its counts just before each and reads them just after).
+    Two NCCL ranks cannot share one card (NCCL 2.28 refuses them:
+    "ncclInvalidUsage ... Duplicate GPU detected : rank 0 and rank 1 both
+    on CUDA device", at the first collective), so the group is gloo's,
+    which takes CUDA tensors (copying them through host memory): a rank's
+    step time here is no speed figure for the split."""
+    import os
+    import torch
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             f"import chip_smoke; sys.exit(chip_smoke.tp_worker({r}, {d!r}))"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(TP_RANKS)]
+        outs = {}
+        try:
+            for r, proc in enumerate(procs):
+                left = TP_TIMEOUT_S - (time.perf_counter() - t_start)
+                outs[r], _ = proc.communicate(timeout=max(left, 1.0))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for r in range(TP_RANKS):
+            print(outs.get(r, "").rstrip())
+        codes = [proc.returncode for proc in procs]
+        check(codes == [0] * TP_RANKS, f"phase 17's ranks exited {codes}")
+        results = []
+        for r in range(TP_RANKS):
+            with open(f"{d}/rank{r}.json") as f:
+                results.append(json.load(f))
+    losses = results[0]["losses"]
+    check(all(res["losses"] == losses and res["tokens"] ==
+              results[0]["tokens"] for res in results),
+          "the ranks of one model group disagree on the losses or tokens")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, unsplit_losses)]
+    print(f"[tp] bf16 split losses " + " ".join(f"{x:.6f}" for x in losses)
+          + " against phase 16's unsharded " + " ".join(
+              f"{x:.6f}" for x in unsplit_losses) + ": relative gaps "
+          + " ".join(f"{g:.2e}" for g in gaps) + f" (band "
+          f"{TP_BF16_LOSS_RTOL:.4g})")
+    check(len(gaps) == DIST_STEPS and max(gaps) <= TP_BF16_LOSS_RTOL,
+          f"the split bf16 losses leave the band: {gaps}")
+    smi = smi_line()
+    for r, res in enumerate(results):
+        print(f"[tp] rank {r}: step p50 {res['step_p50_ms']:.1f} ms, train "
+              f"peak {res['train_peak_gb']:.3f} GB; prefill "
+              f"{res['prefill_ms']:.3f} ms, decode p50 "
+              f"{res['decode_p50_ms']:.3f} ms, serve peak "
+              f"{res['serve_peak_gb']:.3f} GB; card: {smi} (two processes "
+              f"share its SMs: no speed figure for the split)")
+    counts = {n: sum(res["counts"][n] for res in results)
+              for n in _kernel_modules()}
+    print(f"[tp] phase done in {time.perf_counter() - t_start:.1f} s; "
+          f"launches over both ranks {counts}")
+    return counts
+
+
+# phase 18's dry-run runs, one process each: (name, arch, shape, extra CLI
+# flags, meshes); qwen2-vl-2b x train_4k on the 2x16x16 mesh shows the
+# batch split over pod x data, llama3-405b x decode_32k the q heads split
+# over kv heads that do not
+DRYRUN_CELLS = (("rwkv6", "rwkv6-1.6b", "decode_32k", ["--both-meshes"],
                  {"16x16": 256, "2x16x16": 512}),
-                ("qwen2-vl-2b", "train_4k", [], {"16x16": 256}))
+                ("qwen2-vl", "qwen2-vl-2b", "train_4k", [], {"16x16": 256}),
+                ("qwen2-vl-pod", "qwen2-vl-2b", "train_4k", ["--multi-pod"],
+                 {"2x16x16": 512}),
+                ("llama3", "llama3-405b", "decode_32k", [], {"16x16": 256}))
 LAUNCH_TIMEOUT_S = 600
 
 
@@ -3183,16 +3513,16 @@ def smi_line() -> str:
 
 
 def phase_launch_tooling(out_dir: str) -> None:
-    """Phase 17 (see the module's docstring); the dry-run and roofline
+    """Phase 18 (see the module's docstring); the dry-run and roofline
     JSON go to ``out_dir``."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t_start = time.perf_counter()
     runs = {}
-    for arch, shape, flags, _ in DRYRUN_CELLS:
-        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+    for name, arch, shape, flags, _ in DRYRUN_CELLS:
+        runs[name] = [sys.executable, "-m", "repro_torch.launch.dryrun",
                       "--arch", arch, "--shape", shape, *flags,
-                      "--out", f"{out_dir}/dryrun_{arch}.json"]
+                      "--out", f"{out_dir}/dryrun_{name}.json"]
     runs["cost"] = [sys.executable, "-m", "repro_torch.launch.dryrun",
                     "--cost", "--arch", "rwkv6-1.6b", "--shape", "decode_32k",
                     "--out", f"{out_dir}/cost.json"]
@@ -3221,11 +3551,12 @@ def phase_launch_tooling(out_dir: str) -> None:
           f"the port's analysis found something:\n{analysis[-3000:]}")
     smi = smi_line()
     mem = []
-    for arch, shape, _, meshes in DRYRUN_CELLS:
-        check(procs[arch].returncode == 0,
-              f"the dry run of {arch} exited {procs[arch].returncode}:\n"
-              f"{outs[arch][-3000:]}")
-        with open(f"{out_dir}/dryrun_{arch}.json") as f:
+    by_cell = {}
+    for name, arch, shape, _, meshes in DRYRUN_CELLS:
+        check(procs[name].returncode == 0,
+              f"the dry run of {arch} exited {procs[name].returncode}:\n"
+              f"{outs[name][-3000:]}")
+        with open(f"{out_dir}/dryrun_{name}.json") as f:
             rows = json.load(f)
         check(sorted(r["mesh"] for r in rows) == sorted(meshes),
               f"{arch} x {shape}: rows for {[r['mesh'] for r in rows]}")
@@ -3238,7 +3569,21 @@ def phase_launch_tooling(out_dir: str) -> None:
                   f"{arch} @ {r['mesh']}: zero FLOPs or peak: {r}")
             print(f"[launch] dry run {json.dumps(r)}")
             print(f"[launch] card: {smi}")
+            by_cell[(arch, shape, r["mesh"])] = r
         mem += rows
+    # the model-axis split's rows: qwen2-vl-2b x train_4k a rank within
+    # 4.0e14 FLOPs and 95 GB at 16x16 (9.129e14 and 113.9 GB whole), half
+    # the FLOPs at 2x16x16 (8 rows a rank, not 16)
+    one = by_cell[("qwen2-vl-2b", "train_4k", "16x16")]
+    two = by_cell[("qwen2-vl-2b", "train_4k", "2x16x16")]
+    half = two["flops_total"] / one["flops_total"]
+    print(f"[launch] qwen2-vl-2b x train_4k: {one['flops_total']:.4e} FLOPs "
+          f"and {one['bytes_per_device']['peak'] / 1e9:.2f} GB peak a rank at "
+          f"16x16; 2x16x16 / 16x16 FLOPs {half:.4f}")
+    check(one["flops_total"] <= 4.0e14
+          and one["bytes_per_device"]["peak"] <= 95e9
+          and abs(half - 0.5) <= 0.01,
+          f"the split train row is outside its gates: {one}, ratio {half}")
     check(procs["cost"].returncode == 0, f"the cost run exited "
           f"{procs['cost'].returncode}:\n{outs['cost'][-3000:]}")
     with open(f"{out_dir}/cost.json") as f:
@@ -3317,14 +3662,16 @@ def main() -> int:
     paths.append(phase_checkpoint(device))
     paths.append(phase_serve(device, MLA_ARCH))
     train = phase_train(device)
-    dist_counts = phase_dist(device)
-    paths += [train, dist_counts]
+    dist_counts, unsplit_losses = phase_dist(device)
+    tp_counts = phase_tp(device, unsplit_losses)
+    paths += [train, dist_counts, tp_counts]
     with tempfile.TemporaryDirectory() as out_dir:
         phase_launch_tooling(out_dir)
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         row["train_launches"] = train[row["name"]]
         row["dist_launches"] = dist_counts[row["name"]]
+        row["tp_launches"] = tp_counts[row["name"]]
         check(row["launches"] > 0, f"the main path never launched {row['name']}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

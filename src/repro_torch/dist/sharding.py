@@ -242,64 +242,124 @@ def tree_map_paths(tree: dict, fn, prefix: str = "") -> dict:
     return out
 
 
-def _local_shard(t, sharding: NamedSharding):
-    """This rank's shard of ``t`` (whole, the same on every rank) in
-    ``sharding.placements``: a view, ``t`` itself where every sharded mesh
-    dim has one rank."""
+def _local_shard(t, sharding: NamedSharding, done: tuple = ()):
+    """This rank's shard of ``t`` in ``sharding.placements``: a view, ``t``
+    itself where every sharded mesh dim has one rank.  ``t`` is whole, the
+    same on every rank, except along the mesh axes named in ``done``, where
+    it is this rank's block already (a parameter cut over ``model`` by
+    ``Model.shard``) and is not cut again."""
     mesh = sharding.mesh
+    names = list(axis_sizes(mesh))
     local = t
     for i, pl in enumerate(sharding.placements):
         n = mesh.size(i)
-        if isinstance(pl, Shard) and n > 1:
+        if isinstance(pl, Shard) and n > 1 and names[i] not in done:
             local = local.chunk(n, pl.dim)[mesh.get_local_rank(i)]
     return local
 
 
-def place(t, sharding: NamedSharding):
-    """``t``, whole and the same on every rank of ``sharding.mesh``, as a
-    DTensor in ``sharding.placements``: each rank keeps its own shard, cut
-    locally with no communication.  Where every sharded mesh dim has one
-    rank the local tensor is ``t`` itself, not a copy."""
-    local = _local_shard(t, sharding)
+def _whole_shape(t, sharding: NamedSharding, done: tuple) -> tuple:
+    """The whole shape of a tensor that is this rank's block along the
+    mesh axes in ``done`` (equal blocks) and whole along the rest."""
+    shape = list(t.shape)
+    names = list(axis_sizes(sharding.mesh))
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard) and names[i] in done:
+            shape[pl.dim] *= sharding.mesh.size(i)
+    return tuple(shape)
+
+
+def _contiguous_strides(shape: tuple) -> tuple:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= max(n, 1)
+    return tuple(reversed(strides))
+
+
+def place(t, sharding: NamedSharding, done: tuple = ()):
+    """``t``, whole and the same on every rank of ``sharding.mesh`` (but
+    along the axes in ``done``, see ``_local_shard``), as a DTensor in
+    ``sharding.placements``: each rank keeps its own shard, cut locally
+    with no communication.  Where every sharded mesh dim has one rank the
+    local tensor is ``t`` itself, not a copy."""
+    local = _local_shard(t, sharding, done)
     if local is not t:
         local = local.clone()       # let the whole tensor go
+    shape = _whole_shape(t, sharding, done)
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
-                              run_check=False, shape=t.shape,
-                              stride=t.stride())
+                              run_check=False, shape=shape,
+                              stride=(t.stride() if shape == tuple(t.shape)
+                                      else _contiguous_strides(shape)))
 
 
-def gather_whole(t):
-    """The whole value of a DTensor on every rank (an all-gather over each
-    sharded mesh dim, or the local tensor itself where every sharded mesh
-    dim has one rank); a plain tensor as it is."""
+def gather_whole(t, keep: tuple = ()):
+    """The value of a DTensor gathered over each sharded mesh dim but those
+    named in ``keep`` (an all-gather over each, or the local tensor itself
+    where every such dim has one rank): the whole value with ``keep``
+    empty, this rank's block along ``keep`` otherwise.  A plain tensor as
+    it is."""
     if not isinstance(t, DTensor):
         return t
-    if all(not isinstance(pl, Shard) or t.device_mesh.size(i) == 1
-           for i, pl in enumerate(t.placements)):
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    gather = [i for i, pl in enumerate(t.placements)
+              if isinstance(pl, Shard) and mesh.size(i) > 1
+              and (names[i] if names else None) not in keep]
+    if not gather:
         return t.to_local()
-    return t.full_tensor()
+    if not keep:
+        return t.full_tensor()
+    return t.redistribute(mesh, [Replicate() if i in gather else pl
+                                 for i, pl in enumerate(t.placements)]
+                          ).to_local()
 
 
 def place_tree(tree: dict, shardings: dict[str, NamedSharding],
-               resting: dict | None = None) -> dict:
-    """Every leaf of ``tree`` (whole values) placed by its path's entry of
-    ``shardings`` (as ``tree_shardings`` keys them).  Where ``resting``
-    (a tree of the same paths) already holds a DTensor of that shape in
-    those placements, the new shard is written into its local tensor and
-    that DTensor is kept (nothing is written where the whole value was
-    updated in place in it): no new DTensor a step."""
+               resting: dict | None = None,
+               done: dict[str, tuple] | None = None) -> dict:
+    """Every leaf of ``tree`` (whole values, or blocks along the axes that
+    ``done`` gives for its path, see ``_local_shard``) placed by its path's
+    entry of ``shardings`` (as ``tree_shardings`` keys them).  Where
+    ``resting`` (a tree of the same paths) already holds a DTensor of that
+    shape in those placements, the new shard is written into its local
+    tensor and that DTensor is kept (nothing is written where the value
+    was updated in place in it): no new DTensor a step."""
     old = paths_from_tree(resting) if resting is not None else {}
+    done = done or {}
 
     def one(path, t):
-        sh, prev = shardings[path], old.get(path)
-        if not (isinstance(prev, DTensor) and prev.shape == t.shape
+        sh, prev, cut = shardings[path], old.get(path), done.get(path, ())
+        if not (isinstance(prev, DTensor)
+                and prev.shape == _whole_shape(t, sh, cut)
                 and prev.placements == sh.placements):
-            return place(t, sh)
-        local, shard = prev.to_local(), _local_shard(t, sh)
+            return place(t, sh, cut)
+        local, shard = prev.to_local(), _local_shard(t, sh, cut)
         if shard.data_ptr() != local.data_ptr():
             local.copy_(shard)
         return prev
     return tree_map_paths(tree, one)
+
+
+def batch_axes(mesh, batch_size: int | None = None) -> tuple[str, ...]:
+    """The mesh axes ``batch_sharding`` splits a batch of ``batch_size``
+    rows over, outer first: ``("pod", "data")``, ``("data",)`` or ``()``."""
+    entry = batch_sharding(mesh, ndim=1, batch_size=batch_size).spec
+    entry = entry[0] if entry else None
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def batch_block(mesh, batch_size: int) -> tuple[int, int]:
+    """(this rank's block, the number of blocks) of a batch of
+    ``batch_size`` rows split as ``batch_sharding`` splits it: the blocks
+    are the axes' coordinates in row-major order (``pod`` outer), as the
+    reference's ``P(("pod", "data"))`` lays dim 0 over the devices."""
+    sizes = axis_sizes(mesh)
+    index, count = 0, 1
+    for axis in batch_axes(mesh, batch_size):
+        index = index * sizes[axis] + mesh.get_local_rank(axis)
+        count *= sizes[axis]
+    return index, count
 
 
 def slot_shard(slot_id: int, n_shards: int) -> int:

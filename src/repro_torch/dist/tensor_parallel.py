@@ -1,0 +1,417 @@
+"""Tensor parallelism over the mesh's ``model`` axis for the dense,
+vision-language and audio families: the port's counterpart of what GSPMD
+does to the reference's jitted step when ``default_rules`` shard a weight's
+``heads``, ``kv_heads``, ``mlp`` or ``vocab`` dim over ``model``.
+
+What splits is read from the rules, with no knob of its own: for each
+weight, ``spec_for(whole shape, logical axes, default_rules(multi_pod),
+mesh)`` decides, with the reference's degradation ladder.  A region runs
+split over ``model`` exactly where its weights' specs shard a dim over
+``model``, and whole on every model rank otherwise (``split_plan``):
+
+- attention: the q heads (``wq``, ``bq``, ``wo``) and, where they divide
+  too, the kv heads (``wk``, ``wv``, ``bk``, ``bv``), column-parallel in
+  Megatron's form, with a row-parallel ``wo`` whose partial sums are
+  all-reduced.  Where the q heads split and the kv heads do not
+  (llama3-405b at 16: 8 q heads a rank over 8 kv heads), ``wk`` and
+  ``wv`` stay whole: a training forward computes k and v for its own q
+  heads' kv groups only, and the prefill and decode compute all of them
+  for the cache, which stays whole, as the reference's spec keeps it;
+- the SwiGLU MLP: ``w_gate`` and ``w_up`` column-parallel, ``w_down``
+  row-parallel;
+- the vocabulary: the embedding (and the codebook embeddings) cut by rows,
+  each rank looking up its own rows, zeros for tokens outside them, summed
+  over ``model``; the head cut by columns (a tied head follows the
+  embedding's cut); the cross-entropy vocab-parallel in float32
+  (``vocab_cross_entropy``), so that the float32 logits are never
+  gathered on the train path; ``prefill`` and ``decode`` gather the last
+  position's logits, (B, 1, V), as the reference's batch-only
+  ``out_shardings`` give them.
+
+Two conjugate ``autograd.Function``s carry the gradients: ``copy_to``
+(identity forward, all-reduce backward) where a replicated activation
+enters a split region, and ``reduce_from`` (all-reduce forward, identity
+backward) where its partial sums leave it.  Both run over the ``model``
+group only.  Every rank of a model group holds the same replicated
+activations and parameters (the norms, a whole attention), whose
+gradients are therefore equal on every rank; the split parameters' are
+each rank's own.
+
+``shard_model`` (``Model.shard``) cuts each split parameter to this rank's
+block (``params.cut_params``) after the model was made whole, so the
+seeded init and ``load_reference_params`` give every rank the unsplit
+model's values in its block, bit for bit.  The other families (Mamba2,
+RWKV6, the hybrid, MoE, MLA) stay whole here: their ``inner``,
+``heads_x_dim``, ``experts`` and MLA head splits are later slices.
+
+Collectives go through ``all_reduce`` and ``all_gather`` here, on any
+backend: NCCL across cards, or gloo, which takes CUDA tensors itself
+(two processes sharing one card, which NCCL refuses as a duplicate GPU),
+while the kernels still run on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import (ShardingReport, axis_sizes,
+                                       default_rules, spec_for)
+from repro_torch.models.params import cut_params, whole_shape
+
+MODEL = "model"
+
+
+# ----------------------------- collectives ---------------------------- #
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelGroup:
+    """The ``model`` axis of a mesh as one rank sees it: its process
+    group, its size and this rank's coordinate on it."""
+    group: object
+    size: int
+    rank: int
+
+
+def all_reduce(t: torch.Tensor, mg: ModelGroup, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """``t`` (contiguous) all-reduced over the model group in place;
+    returns it."""
+    dist.all_reduce(t, op=op, group=mg.group)
+    return t
+
+
+def all_gather(t: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """Every model rank's ``t`` concatenated along ``dim`` in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mg.size)]
+    dist.all_gather(parts, t, group=mg.group)
+    return torch.cat(parts, dim=dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mg), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward over the model group, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        return all_reduce(x.contiguous().clone(), mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """A replicated activation (or a replicated weight read in part) as it
+    enters a split region: equal values, its gradient summed over the
+    model group."""
+    return _CopyToModel.apply(x, mg)
+
+
+def reduce_from(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """A split region's partial sums, summed over the model group."""
+    return _ReduceFromModel.apply(x, mg)
+
+
+# ------------------------------- regions ------------------------------ #
+@dataclasses.dataclass(eq=False)
+class MlpSplit:
+    """A SwiGLU MLP whose ``mlp`` dim splits over ``model`` (``FFN.tp``):
+    a replicated activation enters it (``copy_to``), its partial sums
+    leave it (``reduce_from``)."""
+    mg: ModelGroup
+
+    def enter(self, x):
+        return copy_to(x, self.mg)
+
+    def exit(self, y):
+        return reduce_from(y, self.mg)
+
+
+@dataclasses.dataclass(eq=False)
+class AttentionSplit(MlpSplit):
+    """A GQA block whose q heads split over ``model`` (``GQA.tp``).
+    ``kv_index``: None where the kv heads split too; else the whole kv
+    heads this rank's q heads attend, one a group of its q heads
+    (contiguous where each group is whole on the rank, one a q head
+    otherwise)."""
+    kv_index: tuple[int, ...] | None = None
+
+    def kv_weights(self, *ws):
+        """``wk``, ``wv`` and their biases (whole, replicated) cut to the
+        kv heads this rank attends, their gradients summed over the model
+        group; as they are where the kv heads split."""
+        if self.kv_index is None:
+            return ws
+        return tuple(None if w is None else self._select(
+            copy_to(w, self.mg), w.dim() - 2) for w in ws)
+
+    def attended(self, kv):
+        """The kv heads this rank attends of whole keys or values (B, S,
+        Hkv, hd); ``kv`` itself where the kv heads split."""
+        return kv if self.kv_index is None else self._select(kv, 2)
+
+    def _select(self, t, dim):
+        lo, n = self.kv_index[0], len(self.kv_index)
+        if self.kv_index == tuple(range(lo, lo + n)):
+            return t.narrow(dim, lo, n)
+        return t.index_select(dim, torch.tensor(self.kv_index,
+                                                device=t.device))
+
+
+def local_lookup(table: torch.Tensor, ids: torch.Tensor, lo: int
+                 ) -> torch.Tensor:
+    """Rows ``ids - lo`` of ``table`` (this rank's rows ``lo`` to ``lo +
+    len(table)`` of the whole vocabulary), zeros for ids outside them: no
+    id indexes out of range."""
+    local = ids - lo
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, torch.zeros_like(local))]
+    return rows.masked_fill(~own[..., None], 0)
+
+
+@dataclasses.dataclass(eq=False)
+class VocabSplit(MlpSplit):
+    """A vocabulary split over ``model`` by rows of the embedding and
+    columns of the head (``Model.tp``): this rank owns ids ``lo`` to
+    ``lo + n_local``; the final norm's output enters the head
+    (``enter``)."""
+    lo: int = 0
+    n_local: int = 0
+
+    def lookup(self, table, ids):
+        """The embedding of ``ids``: each rank's rows, summed over the
+        model group.  Exactly one rank gives each token a non-zero row, so
+        the sum is that row exactly."""
+        return reduce_from(local_lookup(table, ids, self.lo), self.mg)
+
+    def gather(self, logits):
+        """Logits (..., V) whole from each rank's (..., V / n)."""
+        return all_gather(logits, self.mg, dim=-1)
+
+    def cross_entropy(self, logits, labels):
+        """``models.model.cross_entropy`` of the rank's logit columns
+        (``vocab_cross_entropy``)."""
+        return vocab_cross_entropy(logits, labels, self)
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Mean next-token CE of vocab-split logits, in float32, with the
+    reference's arithmetic (``jax.nn.logsumexp`` minus the gold logit):
+    the max of the local maxima (a MAX all-reduce), the log of the sum of
+    the local sums of exp(logit - max) (a SUM), plus the max; the gold
+    logit from the rank that owns it (a SUM of it and zeros).  The
+    backward is softmax minus one-hot on the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vs):
+        x = logits.to(torch.float32)
+        if x is logits:
+            x = x.clone()
+        m = x.amax(dim=-1)
+        all_reduce(m, vs.mg, dist.ReduceOp.MAX)
+        local = labels.long() - vs.lo
+        own = (local >= 0) & (local < vs.n_local)
+        idx = torch.where(own, local, torch.zeros_like(local))
+        gold = torch.gather(x, -1, idx[..., None])[..., 0]
+        gold = all_reduce(torch.where(own, gold, torch.zeros_like(gold)),
+                          vs.mg)
+        x.sub_(m[..., None]).exp_()              # in place: the exp
+        s = all_reduce(x.sum(dim=-1), vs.mg)
+        logz = torch.log(s) + m
+        x.div_(s[..., None])                     # the softmax, for backward
+        ctx.save_for_backward(x, idx, own)
+        ctx.dtype = logits.dtype
+        return torch.mean(logz - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, own = ctx.saved_tensors
+        # in place: the softmax is read once
+        p.scatter_add_(-1, idx[..., None], -own[..., None].to(p.dtype))
+        p.mul_(g / own.numel())
+        return p.to(ctx.dtype), None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        vs: VocabSplit) -> torch.Tensor:
+    """Mean CE of logits (B, S, V / n) or (B, S, CB, V / n), this rank's
+    columns of the vocabulary, against labels shaped like them without V:
+    equal on every model rank, and equal to ``cross_entropy`` of the whole
+    logits to float32 rounding."""
+    return _VocabCrossEntropy.apply(logits, labels, vs)
+
+
+# -------------------------------- plan -------------------------------- #
+# each region's weights, by leaf name: the first one found decides (the
+# rest share its dim), and a region whose leaf the model lacks stays whole
+REGIONS = {"heads": "attn.wq", "kv_heads": "attn.wk", "mlp": "ffn.w_gate",
+           "vocab": "embedding"}
+
+
+@dataclasses.dataclass
+class SplitPlan:
+    """What runs split over the ``model`` axis of ``n`` ranks: each
+    region's weight dim (``dims``: heads, kv_heads, mlp, vocab, whole) and
+    whether ``spec_for`` shards it (``split``); ``family`` says why a model
+    stays whole.  ``specs``: each parameter's spec on its whole shape;
+    ``report``: the ShardingReport of those specs."""
+    n: int
+    split: dict[str, bool]
+    dims: dict[str, int]
+    family: str | None
+    specs: dict
+    report: ShardingReport
+
+    @property
+    def any(self) -> bool:
+        return self.family is None and any(self.split.values())
+
+    def describe(self) -> str:
+        if self.family is not None:
+            return (f"model axis {self.n}: whole ({self.family}: its "
+                    f"split is a later slice)")
+        parts = []
+        for region in REGIONS:
+            if region not in self.dims:
+                continue
+            d = self.dims[region]
+            parts.append(f"{region} {d} " + (
+                f"split, {d // self.n} a rank" if self.split[region]
+                else f"whole ({d} % {self.n} != 0)"))
+        runs = {"attention": self.split.get("heads", False),
+                "mlp": self.split.get("mlp", False),
+                "vocab": self.split.get("vocab", False)}
+        return (f"model axis {self.n}: " + "; ".join(parts) + " -> "
+                + ", ".join(f"{k} {'split' if v else 'whole'}"
+                            for k, v in runs.items()))
+
+
+def _model_dim(spec) -> int | None:
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else entry or ()
+        if MODEL in axes:
+            return dim
+    return None
+
+
+def _in_scope(model) -> str | None:
+    """None for a model whose split this module runs, else its family."""
+    cfg = model.cfg
+    if cfg.rwkv:
+        return "rwkv6"
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg.family
+    if cfg.n_experts:
+        return "moe"
+    if cfg.attn_type == "mla":
+        return "mla"
+    return None
+
+
+def split_plan(model, mesh) -> SplitPlan:
+    """Which regions of ``model`` split over ``mesh``'s ``model`` axis, by
+    ``spec_for`` of every parameter's whole shape under
+    ``default_rules("pod" in the mesh)``."""
+    sizes = axis_sizes(mesh)
+    n = sizes.get(MODEL, 1)
+    rules = default_rules("pod" in sizes)
+    report = ShardingReport()
+    specs = {name: spec_for(whole_shape(p), p.logical_axes, rules, mesh,
+                            report, name)
+             for name, p in model.named_parameters()}
+    split, dims = {}, {}
+    for region, leaf in REGIONS.items():
+        name = next((k for k in specs if k == leaf or k.endswith("." + leaf)),
+                    None)
+        if name is None:
+            continue
+        p = model.get_parameter(name)
+        axis = p.logical_axes.index(region)
+        dims[region] = whole_shape(p)[axis]
+        split[region] = _model_dim(specs[name]) == axis
+    return SplitPlan(n, split, dims, _in_scope(model), specs, report)
+
+
+def shard_model(model, mesh):
+    """Cut ``model`` (made whole, filled or not) to this rank's blocks of
+    every weight its ``split_plan`` splits, and attach the regions that run
+    split (``GQA.tp``, ``FFN.tp``, ``Model.tp``); returns ``model``.  A
+    model already cut, or a plan that splits nothing (one model rank, or a
+    family this module leaves whole), is left as it is."""
+    if getattr(model, "split_plan", None) is not None and model.split_plan.any:
+        raise ValueError("the model is split already")
+    plan = split_plan(model, mesh)
+    model.split_plan = plan
+    if not plan.any:
+        return model
+    mg = ModelGroup(mesh.get_group(MODEL), plan.n,
+                    mesh.get_local_rank(MODEL))
+    cuts = {}
+    for name, spec in plan.specs.items():
+        dim = _model_dim(spec)
+        if dim is not None:
+            cuts[name] = (dim, mg.rank, mg.size)
+    cut_params(model, cuts)
+    cfg = model.cfg
+    for stack in model._dense_stacks():
+        for layer in getattr(model, stack):
+            if plan.split["heads"]:
+                layer.attn.tp = AttentionSplit(mg, None if plan.split[
+                    "kv_heads"] else _kv_index(cfg, mg))
+            if plan.split["mlp"]:
+                layer.ffn.tp = MlpSplit(mg)
+    if plan.split["vocab"]:
+        n_local = cfg.vocab_size // mg.size
+        model.tp = VocabSplit(mg, mg.rank * n_local, n_local)
+    return model
+
+
+def _kv_index(cfg, mg: ModelGroup) -> tuple[int, ...]:
+    """The whole kv heads rank ``mg.rank``'s q heads attend, where the q
+    heads split over ``mg.size`` ranks and the kv heads do not: one a
+    group of its q heads where each group lies whole on the rank or holds
+    all its q heads (a contiguous range), else one a q head."""
+    per = cfg.n_heads // mg.size
+    group = cfg.n_heads // cfg.n_kv_heads
+    heads = range(mg.rank * per, (mg.rank + 1) * per)
+    if per % group == 0 or group % per == 0:
+        return tuple(sorted({h // group for h in heads}))
+    return tuple(h // group for h in heads)
+
+
+def gather_cut(t: torch.Tensor, p, mg: ModelGroup) -> torch.Tensor:
+    """The whole value of a tensor cut as parameter ``p`` is (``p`` itself,
+    its gradient, its optimizer state), gathered over the model group; as
+    it is where ``p`` is not cut."""
+    cut = getattr(p, "cut", None)
+    return t if cut is None else all_gather(t, mg, cut[0])
+
+
+def model_group(model) -> ModelGroup | None:
+    """The model group of a split model (that of any region it runs
+    split), or None."""
+    for m in model.modules():
+        region = getattr(m, "tp", None)
+        if region is not None:
+            return region.mg
+    return None
+
+
+__all__ = ["AttentionSplit", "MlpSplit", "ModelGroup", "SplitPlan",
+           "VocabSplit", "all_gather", "all_reduce", "copy_to", "gather_cut",
+           "local_lookup", "model_group", "reduce_from", "shard_model",
+           "split_plan", "vocab_cross_entropy"]

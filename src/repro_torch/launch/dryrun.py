@@ -29,13 +29,17 @@ A row's numbers (the reference's keys):
   ``prefill`` and ``decode``, the batch on ``batch_sharding``), summed;
   ``degraded_shardings`` is the count of dims those shardings replicate.
 - ``flops_total``: ``FlopCounterMode`` over the step the port runs on one
-  rank.  That step is data parallel (``train.loop.make_train_step``'s
-  sharded step for ``train``; ``prefill``/``decode`` on the rank's batch
-  block): whole local tensors at the per-rank batch, with no tensor-
-  parallel split.  The reference's number is XLA's SPMD partition of one
-  program over the mesh; the two are not expected to agree.
-  ``FlopCounterMode`` counts the products (matmuls, attention), not the
-  elementwise work XLA also counts.
+  rank: the model split over ``model`` where the rules split it
+  (``Model.shard``, ``dist.tensor_parallel``: the dense, vision-language
+  and audio families' heads, MLP and vocabulary; the other families
+  whole), on the rank's block of the batch over ``pod`` x ``data``
+  (``train.loop.make_train_step``'s sharded step for ``train``;
+  ``prefill``/``decode`` on the rank's block, the cache split in kv heads
+  where they split).  The reference's number is XLA's SPMD partition of
+  one program over the mesh, which also splits ``embed`` over ``data``
+  and the families this port still runs whole; the two are not expected
+  to agree.  ``FlopCounterMode`` counts the products (matmuls,
+  attention), not the elementwise work XLA also counts.
 - ``bytes_accessed``: the bytes every op of the step reads and writes (its
   tensor arguments and outputs; views move none): an unfused count.
 - ``collective_bytes``: the output bytes of every collective the step
@@ -45,8 +49,9 @@ A row's numbers (the reference's keys):
   dispatch mode that tracks every live fake tensor's storage
   (``LiveBytes``); ``output``: the bytes of the step's outputs it
   allocated; ``peak``: every live byte on the rank at the step's high-water
-  mark (the port's whole compute copy of the parameters, the resting
-  shards, the batch, the step's own tensors).
+  mark (the rank's compute copy of the parameters, its blocks where they
+  split over ``model`` and whole elsewhere, the resting shards, the batch,
+  the step's own tensors).
 - ``lower_s`` / ``compile_s``: seconds to build the fake model, state and
   shardings / to run the fake step (no lowering or compiling exists here).
 """
@@ -68,14 +73,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs import all_archs, get_config
 from repro_torch.dist.sharding import (ShardingReport, axis_sizes,
                                        batch_sharding, default_rules,
-                                       place_tree, tree_shardings)
+                                       tree_shardings)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import (LONG_CONTEXT_OK, SHAPES,
                                        TRAIN_MICROBATCHES, applicable_cells,
                                        input_specs)
 from repro_torch.models import layers
 from repro_torch.models.model import build_model
-from repro_torch.models.params import paths_from_tree, reference_path
+from repro_torch.models.params import (paths_from_tree, reference_path,
+                                       whole_shape)
 from repro_torch.optim import adamw_init
 from repro_torch.train.loop import (TrainConfig, make_train_step,
                                     opt_state_axes)
@@ -232,7 +238,8 @@ def _fake_mode():
 def _stacked(named: dict) -> dict[str, torch.Tensor]:
     """{the reference's path: a ``meta`` stand-in of its stacked shape} of
     tensors keyed by the port's parameter names (per-layer leaves stacked
-    along a leading layers axis, as the reference holds them)."""
+    along a leading layers axis, as the reference holds them); a parameter
+    split over ``model`` by its whole shape."""
     depth: dict[str, int] = {}
     leaf: dict[str, torch.Tensor] = {}
     for name, t in named.items():
@@ -240,7 +247,7 @@ def _stacked(named: dict) -> dict[str, torch.Tensor]:
         leaf[path] = t
         depth[path] = depth.get(path, 0) + 1 if stacked else 0
     return {path: torch.empty(((depth[path],) if depth[path] else ())
-                              + tuple(t.shape), dtype=t.dtype, device="meta")
+                              + whole_shape(t), dtype=t.dtype, device="meta")
             for path, t in leaf.items()}
 
 
@@ -259,15 +266,19 @@ def _shard_bytes(tree: dict, shardings: dict) -> int:
                for path, sh in shardings.items())
 
 
-def _global_cache(cache: dict, batch: int) -> dict:
+def _global_cache(model, cache: dict, batch: int) -> dict:
     """Flat ``meta`` stand-ins of the whole cache from a rank's block of
     it: each leaf at ``batch`` rows on axis 1, behind its stack's layers
-    axis (``len``, (n, 1), as it is)."""
+    axis (``len``, (n, 1), as it is), and all the config's kv heads where
+    the rank keeps a share of them."""
+    axes = model.cache_axes()
     out = {}
     for path, t in paths_from_tree(cache).items():
-        shp = tuple(t.shape)
+        shp = list(t.shape)
         if len(shp) > 2:
-            shp = (shp[0], batch) + shp[2:]
+            shp[1] = batch
+        if "kv_heads" in axes[path]:
+            shp[axes[path].index("kv_heads")] = model.cfg.n_kv_heads
         out[path] = torch.empty(shp, dtype=t.dtype, device="meta")
     return out
 
@@ -286,9 +297,12 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
     report = ShardingReport()
     t0 = time.perf_counter()
     with _fake_mode(), LiveBytes() as live:
-        model = build_model(cfg, dev, seed=None)
+        model = build_model(cfg, dev, seed=None, mesh=mesh)
         axes = model.param_axes()
-        ref_params = _stacked(dict(model.named_parameters()))
+        named = dict(model.named_parameters())
+        whole = {n: torch.empty(whole_shape(p), dtype=p.dtype, device="meta")
+                 for n, p in named.items()}
+        ref_params = _stacked(named)
         argument = _shard_bytes(ref_params, tree_shardings(
             ref_params, axes, mesh, rules, report))
         specs = input_specs(cfg, shape, dev)
@@ -303,23 +317,25 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
             model.requires_grad_(True)
             opt = adamw_init(model, tcfg.opt)
             ref_opt = {k: (_stacked(v) if isinstance(v, dict) else v)
-                       for k, v in opt.items()}
+                       for k, v in adamw_init(whole, tcfg.opt,
+                                              abstract=True).items()}
             argument += _shard_bytes(paths_from_tree(ref_opt),
                                      tree_shardings(ref_opt,
                                                     opt_state_axes(axes),
                                                     mesh, rules, report))
             step_fn = make_train_step(model, tcfg, mesh=mesh)
-            opt = place_tree(opt, step_fn.shardings["opt_state"])
+            opt = step_fn.place(opt)
 
             def step():
                 return step_fn(opt, specs)
         else:
-            # the rank's block of the batch, and its cache, whole in heads
+            # the rank's block of the batch, and its cache, a share of the
+            # kv heads where they split over ``model``
             rows = shape.global_batch // _span(b_shard["tokens"])
             cache = model.init_cache(rows, shape.seq_len)
-            whole = _global_cache(cache, shape.global_batch)
-            argument += _shard_bytes(whole, tree_shardings(
-                whole, model.cache_axes(), mesh, rules, report))
+            whole_cache = _global_cache(model, cache, shape.global_batch)
+            argument += _shard_bytes(whole_cache, tree_shardings(
+                whole_cache, model.cache_axes(), mesh, rules, report))
             block = {k: v[:rows] for k, v in specs.items()}
 
             @torch.no_grad()
@@ -357,11 +373,13 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
         "compile_s": round(t_step, 1),
     }
     if verbose:
-        _print_row(result, report)
+        _print_row(result, report, model.split_plan.describe())
     return result
 
 
-def _print_row(result: dict, report: ShardingReport) -> None:
+def _print_row(result: dict, report: ShardingReport, split: str) -> None:
+    """The row, the model-axis split (``split_plan``) and the degraded
+    dims, on stdout."""
     print(f"[{result['arch']} x {result['shape']} @ {result['mesh']}] "
           f"build {result['lower_s']:.0f}s step {result['compile_s']:.0f}s")
     mem = result["bytes_per_device"]
@@ -371,6 +389,7 @@ def _print_row(result: dict, report: ShardingReport) -> None:
     print(f"  flops={result['flops_total']:.3e} "
           f"bytes={result['bytes_accessed']:.3e} "
           f"coll={result['collective_bytes_total']:.3e}")
+    print(f"  {split}")
     if report.degraded:
         kinds: dict[str, int] = {}
         for _, _, why in report.degraded:

@@ -31,10 +31,12 @@ from repro_torch.models.params import InitCtx
 
 class GQA(nn.Module):
     """wq (d, H, hd), wk and wv (d, Hkv, hd), wo (H, hd, d), optional
-    biases."""
+    biases.  ``tp``: None, or where the heads split over a mesh's ``model``
+    axis (``dist.tensor_parallel.AttentionSplit``), this rank's heads."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
+        self.tp = None
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.wq = ctx.param("wq", (d, H, hd), ("embed", "heads", "head_dim"))
         self.wk = ctx.param("wk", (d, Hkv, hd),
@@ -62,12 +64,21 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+                 positions: torch.Tensor, cache_kv: bool = False):
+    """q, k, v (B, S, heads, hd) roped.  Split over ``model`` (``p.tp``):
+    the rank's q heads, and k and v for the kv heads it attends or, with
+    ``cache_kv``, for every kv head its cache keeps (``AttentionSplit``)."""
+    wk, wv = p.wk, p.wv
+    bk, bv = (p.bk, p.bv) if cfg.qkv_bias else (None, None)
+    if p.tp is not None:
+        x = p.tp.enter(x)
+        if not cache_kv:
+            wk, wv, bk, bv = p.tp.kv_weights(wk, wv, bk, bv)
+    q, k, v = _proj(x, p.wq), _proj(x, wk), _proj(x, wv)
     if cfg.qkv_bias:
         q = q + p.bq[None, None]
-        k = k + p.bk[None, None]
-        v = v + p.bv[None, None]
+        k = k + bk[None, None]
+        v = v + bv[None, None]
     if cfg.mrope:                   # positions (3, B, S)
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -77,10 +88,20 @@ def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
-def _out(p: GQA, o: torch.Tensor) -> torch.Tensor:
-    """einsum('bshk,hkd->bsd') as one matrix product."""
+def _out(p, o: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matrix product; split over
+    ``model``, the rank's heads' partial sums summed over it."""
     h, k, d = p.wo.shape
-    return o.flatten(-2) @ p.wo.reshape(h * k, d)
+    y = o.flatten(-2) @ p.wo.reshape(h * k, d)
+    tp = getattr(p, "tp", None)
+    return y if tp is None else tp.exit(y)
+
+
+def _attended(p, kv: torch.Tensor) -> torch.Tensor:
+    """The kv heads of ``kv`` (as the cache keeps them) that this rank's q
+    heads attend: all of them unless the q heads split and the kv heads
+    do not."""
+    return kv if p.tp is None else p.tp.attended(kv)
 
 
 def _attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -102,7 +123,7 @@ def gqa_prefill(p: GQA, x: torch.Tensor, cfg: ModelConfig,
 
     Sliding-window caches are rings of size ``window``: only the trailing
     window of keys survives prefill, placed at their ring slots."""
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, cache_kv=True)
     S = x.shape[1]
     L = cache["k"].shape[1]
     if S > L:                       # SWA ring: keep the last L positions
@@ -114,7 +135,7 @@ def gqa_prefill(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     cache["k"][:, :k_w.shape[1]] = k_w.to(cache["k"].dtype)
     cache["v"][:, :v_w.shape[1]] = v_w.to(cache["v"].dtype)
     cache["len"].fill_(S)
-    return _out(p, _attend(q, k, v, cfg)), cache
+    return _out(p, _attend(q, _attended(p, k), _attended(p, v), cfg)), cache
 
 
 def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
@@ -125,7 +146,7 @@ def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.sliding_window``.  The slot index stays on the device; like the
     reference's ``dynamic_update_slice`` it is clamped to the cache.
     """
-    q, k, v = _project_qkv(p, x, cfg, positions)      # (B, 1, H, hd)
+    q, k, v = _project_qkv(p, x, cfg, positions, cache_kv=True)  # (B,1,H,hd)
     L = cache["k"].shape[1]
     pos = cache["len"][0].long()                      # current length
     slot = pos % L if cfg.sliding_window else torch.clamp(pos, max=L - 1)
@@ -133,7 +154,8 @@ def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     cache["v"].index_copy_(1, slot.reshape(1), v.to(cache["v"].dtype))
     n_valid = torch.clamp(pos + 1, max=L)
     valid = torch.arange(L, device=x.device)[None, :] < n_valid
-    o = ops.decode_attention(q, cache["k"], cache["v"], valid)
+    o = ops.decode_attention(q, _attended(p, cache["k"]),
+                             _attended(p, cache["v"]), valid)
     cache["len"] += 1
     return _out(p, o), cache
 
@@ -146,11 +168,14 @@ GQA_CACHE_AXES = {"k": ("batch", "seq_cache", "kv_heads", "head_dim"),
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
-                   device, n: int | None = None) -> dict:
-    """Zeroed KV cache; with ``n``, ``n`` caches stacked on a leading axis."""
+                   device, n: int | None = None,
+                   n_kv_heads: int | None = None) -> dict:
+    """Zeroed KV cache; with ``n``, ``n`` caches stacked on a leading axis.
+    ``n_kv_heads``: the kv heads it keeps (default ``cfg``'s; a rank's
+    share where they split over ``model``)."""
     L = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     lead = () if n is None else (n,)
-    shape = lead + (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    shape = lead + (batch, L, n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -124,6 +124,10 @@ class Model(nn.Module):
             cfg, use_kernel=resolve_use_kernel(cfg.use_kernel, dev))
         self.cfg = cfg
         self.device = dev
+        # the vocabulary's split over a mesh's ``model`` axis and the plan
+        # of every region's (``shard``); None: whole
+        self.tp = None
+        self.split_plan = None
         ctx = InitCtx(cfg.dtype, dev)
         # the reference's ``embed`` leaf (``embed`` is the method here);
         # with codebooks it and ``head`` are kept unread, as the reference
@@ -165,6 +169,18 @@ class Model(nn.Module):
         init_params(self, torch.Generator(device=self.device).manual_seed(seed))
         return self
 
+    def shard(self, mesh) -> "Model":
+        """Split the dense, vision-language and audio families over
+        ``mesh``'s ``model`` axis where the reference's rules shard their
+        weights (``dist.tensor_parallel.shard_model``): each rank keeps its
+        block of every split weight, of a model filled whole (``init``
+        after ``shard`` draws whole tensors too, and
+        ``load_reference_params`` cuts the reference's).  Other families,
+        and a mesh without a ``model`` axis of more than one rank, are left
+        whole.  Returns the model."""
+        from repro_torch.dist.tensor_parallel import shard_model
+        return shard_model(self, mesh)
+
     def param_axes(self) -> dict[str, tuple]:
         """{the reference's parameter path: logical axes}, the second value
         of the reference's ``Model.init``: stacked leaves once, with their
@@ -179,11 +195,11 @@ class Model(nn.Module):
         ``patch_embeds`` (B, n, d) replace the first n positions."""
         cfg = self.cfg
         if cfg.n_codebooks:
-            x = self.embed_cb[0][tokens[..., 0]]
+            x = self._lookup(self.embed_cb[0], tokens[..., 0])
             for c in range(1, cfg.n_codebooks):
-                x = x + self.embed_cb[c][tokens[..., c]]
+                x = x + self._lookup(self.embed_cb[c], tokens[..., c])
         else:
-            x = self.embedding[tokens]
+            x = self._lookup(self.embedding, tokens)
         if cfg.vision_stub and patch_embeds is not None:
             n = patch_embeds.shape[1]
             if n > x.shape[1]:
@@ -192,15 +208,29 @@ class Model(nn.Module):
             x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
         return x
 
+    def _lookup(self, table: torch.Tensor, ids: torch.Tensor):
+        """``table[ids]``; with the vocabulary split over ``model``, each
+        rank's rows summed over it (``VocabSplit.lookup``)."""
+        return table[ids] if self.tp is None else self.tp.lookup(table, ids)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, V), or (B, S, CB, V) with codebooks (one head each)."""
+        """(B, S, V), or (B, S, CB, V) with codebooks (one head each); with
+        the vocabulary split over ``model``, this rank's columns of V."""
         cfg = self.cfg
         x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        if self.tp is not None:
+            x = self.tp.enter(x)
         if cfg.n_codebooks:     # einsum('bsd,cdv->bscv'), a product a stream
             y = x.flatten(0, 1) @ self.head_cb                # (CB, B*S, V)
             return y.permute(1, 0, 2).unflatten(0, x.shape[:2])
         head = self.embedding.T if cfg.tie_embeddings else self.head
         return x @ head
+
+    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``logits`` of the last position, (B, 1, V) or (B, 1, CB, V),
+        whole: gathered over ``model`` where the vocabulary splits."""
+        lg = self.logits(x[:, -1:])
+        return lg if self.tp is None else self.tp.gather(lg)
 
     def _positions(self, tokens: torch.Tensor, offset: int = 0):
         """(B, S) position ids; (3, B, S) text-like ones under M-RoPE."""
@@ -248,8 +278,10 @@ class Model(nn.Module):
         training forward, recorded by autograd where the parameters
         require grad (``train.loop.init_train_state``).  With codebooks
         tokens are (B, S, CB) and logits (B, S, CB, V); ``patch_embeds`` as
-        in ``embed``.  ``aux`` is the MoE load-balance loss summed over the
-        layers in layer order (0.0 without experts).  Each layer (a
+        in ``embed``; with the vocabulary split over ``model``, the
+        logits are this rank's columns of V.  ``aux`` is the MoE
+        load-balance loss summed over the layers in layer order (0.0
+        without experts).  Each layer (a
         hybrid's Mamba2 layer with the shared block it is followed by)
         runs under ``_layer_runner``."""
         cfg = self.cfg
@@ -305,10 +337,16 @@ class Model(nn.Module):
             return {"layers": rwkv_mod.rwkv6_state_init(
                 cfg, batch, device=self.device, n=cfg.n_layers)}
         if self._dense:
-            init = (attn.mla_cache_init if cfg.attn_type == "mla"
-                    else attn.gqa_cache_init)
-            return {name: init(cfg, batch, max_len, device=self.device,
-                               n=len(getattr(self, name)))
+            if cfg.attn_type == "mla":
+                return {name: attn.mla_cache_init(
+                            cfg, batch, max_len, device=self.device,
+                            n=len(getattr(self, name)))
+                        for name in self._dense_stacks()}
+            # the kv heads a rank keeps: wk's, a share where they split
+            return {name: attn.gqa_cache_init(
+                        cfg, batch, max_len, device=self.device,
+                        n=len(getattr(self, name)),
+                        n_kv_heads=getattr(self, name)[0].attn.wk.shape[1])
                     for name in self._dense_stacks()}
         cache = {"layers": ssm_mod.mamba2_state_init(
             cfg, batch, device=self.device, n=cfg.n_layers)}
@@ -376,13 +414,13 @@ class Model(nn.Module):
         layers = cache["layers"]
         if cfg.rwkv:
             x = self._rwkv_stack(x, layers, carry=False)
-            return self.logits(x[:, -1:]), cache
+            return self._last_logits(x), cache
         if self._dense:
             for name in self._dense_stacks():
                 for i, layer in enumerate(getattr(self, name)):
                     x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
                                                "prefill", _at(cache[name], i))
-            return self.logits(x[:, -1:]), cache
+            return self._last_logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_forward(
@@ -396,7 +434,7 @@ class Model(nn.Module):
                                            positions, "prefill",
                                            _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
-        return self.logits(x[:, -1:]), cache
+        return self._last_logits(x), cache
 
     # ------------------------------ decode ----------------------------- #
     @torch.no_grad()
@@ -408,7 +446,8 @@ class Model(nn.Module):
         x = self.embed(tokens)
         layers = cache["layers"]
         if cfg.rwkv:
-            return self.logits(self._rwkv_stack(x, layers, carry=True)), cache
+            return self._last_logits(self._rwkv_stack(x, layers, carry=True)
+                                     ), cache
         positions = None
         attn_cache = (cache.get("dense_layers", layers) if self._dense
                       else cache.get("shared_attn"))
@@ -423,7 +462,7 @@ class Model(nn.Module):
                 for i, layer in enumerate(getattr(self, name)):
                     x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
                                                "decode", _at(cache[name], i))
-            return self.logits(x), cache
+            return self._last_logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
             h, ssm_state, conv_state = ssm_mod.mamba2_decode(
@@ -437,14 +476,17 @@ class Model(nn.Module):
                                            positions, "decode",
                                            _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
-        return self.logits(x), cache
+        return self._last_logits(x), cache
 
 
-def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0
-                ) -> Model:
+def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0,
+                mesh=None) -> Model:
     """A model on ``device``, filled from ``seed`` (None: left
-    uninitialised, for ``load_reference_params``)."""
+    uninitialised, for ``load_reference_params``); with ``mesh``, split
+    over its ``model`` axis (``Model.shard``) and filled after, as whole."""
     model = Model(cfg, device)
+    if mesh is not None:
+        model.shard(mesh)
     return model if seed is None else model.init(seed)
 
 
@@ -462,9 +504,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
     """(CE of position t's logits against label t + 1, plus 0.01 x the MoE
-    aux loss; {"ce", "aux"}).  ``batch``: ``tokens``, ``labels`` (shaped
-    like the tokens: (B, S), or (B, S, CB) with codebooks) and, for the
-    vision stub, ``patch_embeds``."""
+    aux loss; {"ce", "aux"}); with the vocabulary split over ``model``,
+    the vocab-parallel CE of the rank's logit columns.  ``batch``:
+    ``tokens``, ``labels`` (shaped like the tokens: (B, S), or (B, S, CB)
+    with codebooks) and, for the vision stub, ``patch_embeds``."""
     logits, aux = model(batch["tokens"], batch.get("patch_embeds"))
-    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    ce = cross_entropy if model.tp is None else model.tp.cross_entropy
+    loss = ce(logits[:, :-1], batch["labels"][:, 1:])
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -20,10 +20,13 @@ from repro_torch.models.params import InitCtx
 
 
 class FFN(nn.Module):
-    """w_gate, w_up (d, f) and w_down (f, d)."""
+    """w_gate, w_up (d, f) and w_down (f, d).  ``tp``: None, or where the
+    ``mlp`` dim splits over a mesh's ``model`` axis
+    (``dist.tensor_parallel.MlpSplit``), this rank's columns and rows."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx, d_ff: int | None = None):
         super().__init__()
+        self.tp = None
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.w_gate = ctx.param("w_gate", (d, f), ("embed", "mlp"))
         self.w_up = ctx.param("w_up", (d, f), ("embed", "mlp"))
@@ -35,7 +38,11 @@ def ffn_init(cfg: ModelConfig, ctx: InitCtx, d_ff: int | None = None) -> FFN:
 
 
 def ffn_forward(p: FFN, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(x, p.w_gate, p.w_up, p.w_down)
+    """SwiGLU; split over ``model``, column-parallel ``w_gate`` and
+    ``w_up``, row-parallel ``w_down``, its partial sums summed over it."""
+    if p.tp is None:
+        return swiglu(x, p.w_gate, p.w_up, p.w_down)
+    return p.tp.exit(swiglu(p.tp.enter(x), p.w_gate, p.w_up, p.w_down))
 
 
 class MoE(nn.Module):

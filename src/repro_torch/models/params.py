@@ -75,23 +75,69 @@ class InitCtx:
         return p
 
 
+def whole_shape(p) -> tuple[int, ...]:
+    """The shape of the whole parameter of which ``p`` is this rank's
+    block (``cut_params``), or ``p``'s own shape."""
+    return getattr(p, "whole_shape", tuple(p.shape))
+
+
+def local_part(p, whole):
+    """This rank's block of ``whole`` (a tensor or array of
+    ``whole_shape(p)``) as ``p`` was cut from it: ``whole`` itself where
+    ``p`` is not cut."""
+    cut = getattr(p, "cut", None)
+    if cut is None:
+        return whole
+    dim, index, n = cut
+    size = whole.shape[dim] // n
+    sl = [slice(None)] * len(whole.shape)
+    sl[dim] = slice(index * size, (index + 1) * size)
+    return whole[tuple(sl)]
+
+
+@torch.no_grad()
+def cut_params(module: nn.Module, cuts: dict[str, tuple[int, int, int]]
+               ) -> None:
+    """Replace each parameter named in ``cuts`` by its block: ``{name:
+    (dim, index, n)}`` keeps block ``index`` of ``n`` equal blocks along
+    ``dim``, a copy, so that the whole tensor can be freed.  The new
+    parameter keeps the init rule, the logical axes and ``requires_grad``,
+    and records ``whole_shape`` and ``cut`` (``local_part``)."""
+    for name, (dim, index, n) in cuts.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name) if owner_name else module
+        old = getattr(owner, leaf)
+        if old.shape[dim] % n:
+            raise ValueError(f"{name}: dim {dim} of {tuple(old.shape)} does "
+                             f"not split into {n} blocks")
+        new = nn.Parameter(old.chunk(n, dim)[index].clone(),
+                           requires_grad=old.requires_grad)
+        new.init_rule, new.logical_axes = old.init_rule, old.logical_axes
+        new.whole_shape, new.cut = tuple(old.shape), (dim, index, n)
+        setattr(owner, leaf, new)
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter of ``module`` by its recorded rule, in
-    registration order, from ``generator`` (on the parameters' device)."""
+    registration order, from ``generator`` (on the parameters' device).  A
+    parameter cut by ``cut_params`` is drawn whole, as the unsplit model
+    draws it, and keeps its block: the generator's stream, and so every
+    value, is the unsplit model's."""
     for _, p in module.named_parameters():
         init, scale = p.init_rule
         if init == "zeros":
             p.zero_()
         elif init == "ones":
             p.fill_(1.0)
-        elif p.dtype == torch.float32:   # drawn in place: no float32 copy
+        elif p.dtype == torch.float32 and not hasattr(p, "cut"):
+            # drawn in place: no float32 copy
             torch.randn(p.shape, generator=generator, out=p)
             p.mul_(scale)
         else:
-            z = torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32)
-            p.copy_(z.mul_(scale))
+            z = torch.randn(whole_shape(p), generator=generator,
+                            device=p.device, dtype=torch.float32)
+            p.copy_(local_part(p, z.mul_(scale)))
 
 
 def tree_from_paths(flat: dict[str, Any]) -> dict:
@@ -207,7 +253,9 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
     ``flat`` is ``paths_from_tree(params)`` of the reference's tree with
     numpy arrays as leaves, named as ``split_reference_paths`` maps them.
     Every parameter of the model must be filled exactly once, each with its
-    own shape; values are cast to the parameter's dtype.
+    own shape (the whole one, for a parameter ``cut_params`` cut: it takes
+    its block of the reference's array); values are cast to the
+    parameter's dtype.
     """
     own = dict(model.named_parameters())
     filled = set()
@@ -216,10 +264,11 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
             raise KeyError(f"reference parameter {name!r} has no counterpart "
                            "in the port's model")
         p = own[name]
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))   # a copy
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {tuple(t.shape)} != "
-                             f"port shape {tuple(p.shape)}")
+        if tuple(np.shape(arr)) != whole_shape(p):
+            raise ValueError(f"{name}: reference shape {tuple(np.shape(arr))}"
+                             f" != port shape {whole_shape(p)}")
+        # a copy of this rank's block
+        t = torch.from_numpy(np.array(local_part(p, arr), dtype=np.float32))
         p.copy_(t.to(device=p.device, dtype=p.dtype))
         filled.add(name)
     missing = sorted(set(own) - filled)
@@ -227,15 +276,23 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
         raise KeyError(f"no reference value for {missing}")
 
 
-def opt_state_from_reference(state: dict, cfg, device) -> dict:
+def opt_state_from_reference(state: dict, cfg, device,
+                             model: nn.Module | None = None) -> dict:
     """The reference's AdamW state (``{"m", "v", "master"}`` trees, flat or
     nested, with numpy leaves, and ``step``) as the port's
     (``optim.adamw_init``'s layout): per-parameter tensors on ``device``,
     the moments in ``cfg.moment_dtype`` and the master in
     ``cfg.master_dtype`` (any object with those two attributes, such as an
-    ``AdamWConfig``)."""
+    ``AdamWConfig``).  With ``model``, each leaf is the block of its
+    parameter's cut (``local_part``), as a split model's state holds it."""
+    own = dict(model.named_parameters()) if model is not None else {}
+
+    def part(name, a):
+        return local_part(own[name], a) if name in own else a
+
     def convert(tree, dtype):
-        return {name: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        return {name: torch.from_numpy(np.array(part(name, a),
+                                                dtype=np.float32)).to(
                     device=device, dtype=dtype)
                 for name, a in split_reference_paths(
                     paths_from_tree(tree)).items()}

@@ -7,24 +7,32 @@ The parameters are the model's own (``nn.Parameter``s that
 them in place (``optim.adamw_update``).  The LM kernels take part in the
 step through their ``torch.autograd.Function``s (``kernels.ops``): forward
 on the card, backward by the plain version's vector-Jacobian product.
-With a device mesh the step is data parallel over its ``data`` axis
-(``make_train_step``'s ``mesh``), its optimizer state resting as DTensors.
+With a device mesh the step is data parallel over its batch axes
+(``pod`` and ``data``) and, for a model split by ``Model.shard``, tensor
+parallel over its ``model`` axis (``make_train_step``'s ``mesh``), its
+optimizer state resting as DTensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.dist.collectives import (BucketPlan, bucketed_allreduce,
                                           flatten_grads, process_group,
                                           unflatten_grads)
-from repro_torch.dist.sharding import (axis_sizes, default_rules,
-                                       gather_whole, place_tree,
-                                       tree_map_paths, tree_shardings)
+from repro_torch.dist.sharding import (axis_sizes, batch_block,
+                                       default_rules, gather_whole,
+                                       place_tree, tree_map_paths,
+                                       tree_shardings)
+from repro_torch.dist.tensor_parallel import MODEL, model_group
+from repro_torch.dist.tensor_parallel import all_reduce as tp_all_reduce
 from repro_torch.models.model import Model, loss_fn
+from repro_torch.models.params import whole_shape
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule)
 
@@ -96,29 +104,44 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     gradients are clipped to ``max_grad_norm``, the schedule is read at the
     step before the update, and AdamW runs.
 
-    With a ``mesh`` (a ``DeviceMesh`` with a ``data`` dimension, such as
-    ``launch.mesh.make_host_mesh`` gives), the sharded step, the
-    counterpart of the reference's ``jax.jit(step, in_shardings=...)``:
+    With a ``mesh`` (a ``DeviceMesh`` with a ``data`` dimension, and
+    optionally ``pod`` and ``model`` ones, such as
+    ``launch.mesh.make_host_mesh`` and ``make_production_mesh`` give), the
+    sharded step, the counterpart of the reference's ``jax.jit(step,
+    in_shardings=...)``:
 
     - every rank passes the same global batch; it splits into equal blocks
-      along axis 0 over ``data``, and each rank takes its own (the
-      reference's ``batch_sharding``); the ranks of one ``data``
-      coordinate (a ``model`` axis) compute the same block;
-    - each rank computes its block's gradients through the path above, on
-      plain local tensors (the kernels launch by raw pointer and take no
-      DTensor);
-    - the gradients are averaged over ``data``: flattened to float32
-      (``collectives.flatten_grads``), summed by
-      ``collectives.bucketed_allreduce`` with ``plan`` (default: one
-      chunk), divided by the ``data`` size and cast back to each
-      parameter's dtype; the loss and the metrics are averaged likewise;
+      along axis 0 over the batch axes ``batch_sharding`` picks for it
+      (``("pod", "data")`` where the mesh has ``pod``, else ``("data",)``,
+      outer axes dropped where the rows do not divide), and each rank
+      takes its own (``sharding.batch_block``: the rows the reference's
+      ``batch_sharding`` gives it); the ranks of one batch coordinate (a
+      ``model`` axis) compute the same block;
+    - a model split over ``model`` (``Model.shard``) computes its block's
+      gradients tensor-parallel, each rank its own block of every split
+      parameter's gradient (``dist.tensor_parallel``); a model left whole
+      computes them whole on every model rank;
+    - each rank computes through the path above, on plain local tensors
+      (the kernels launch by raw pointer and take no DTensor);
+    - the gradients are averaged over the batch axes only: flattened to
+      float32 (``collectives.flatten_grads``), summed over the batch group
+      by ``collectives.bucketed_allreduce`` with ``plan`` (default: one
+      chunk), divided by its size and cast back to each parameter's dtype;
+      a split gradient is never summed over ``model``; the loss and the
+      metrics are averaged likewise;
+    - the clip's global norm sums each split leaf's squares over ``model``
+      once and each replicated leaf's once;
     - the optimizer state (the float32 master copy of the parameters, the
       moments, the step) rests between steps as DTensors in the
       placements ``tree_shardings(opt_state, opt_state_axes(axes))``
-      gives (``step.shardings["opt_state"]``; a state of plain tensors is
-      placed on the first call), and is gathered whole for the update;
+      gives on the parameters' whole shapes (``step.shardings
+      ["opt_state"]``; a state of plain tensors, each leaf shaped as its
+      parameter, is placed on the first call, or by ``step.place``), and
+      is gathered for the update over every mesh axis but ``model`` where
+      its parameter is split, whole otherwise; AdamW then updates each
+      rank's block in place;
     - the module's parameters, the compute copy in their own dtype, are
-      kept whole on every rank for the forward; their placements
+      each rank's blocks where split and whole otherwise; their placements
       (``step.shardings["params"]``) are where ``elastic.reshard_state``
       puts them.
 
@@ -147,40 +170,74 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
         return step
 
     plan = plan or BucketPlan()
-    rules = default_rules(False)
     sizes = axis_sizes(mesh)
     if "data" not in sizes:
         raise ValueError(f"the mesh {sizes} has no 'data' dimension")
-    n_data, coord = sizes["data"], mesh.get_local_rank("data")
-    group = (mesh, "data")
+    rules = default_rules("pod" in sizes)
+    group = _batch_group(mesh)
+    n_batch = math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
     axes = model.param_axes()
-    p_shard = tree_shardings(params, axes, mesh, rules)
-    shapes = {"m": params, "v": params, "master": params,
+    whole = {n: torch.empty(whole_shape(p), dtype=p.dtype, device="meta")
+             for n, p in params.items()}
+    p_shard = tree_shardings(whole, axes, mesh, rules)
+    shapes = {"m": whole, "v": whole, "master": whole,
               "step": torch.empty(())}
     o_shard = tree_shardings(shapes, opt_state_axes(axes), mesh, rules)
+    # the leaves that are this rank's blocks over ``model``, by path
+    split = frozenset(n for n, p in params.items() if hasattr(p, "cut"))
+    done = {f"{k}.{n}": (MODEL,) for k in ("m", "v", "master") for n in split}
+    mg = model_group(model)
+
+    def sum_over_model(t):
+        return tp_all_reduce(t, mg)
 
     def sharded(opt_state: dict, batch: dict):
-        if any(v.shape[0] % n_data for v in batch.values()):
-            raise ValueError(f"the batch does not split into {n_data} equal "
-                             "blocks over 'data'")
-        local = {k: v.chunk(n_data)[coord] for k, v in batch.items()}
+        rows = next(iter(batch.values())).shape[0]
+        index, count = batch_block(mesh, rows)
+        local = {k: v.chunk(count)[index] for k, v in batch.items()}
         loss, metrics, grads = accumulate_grads(model, local, n_micro)
         flat, spec = flatten_grads(grads)
         del grads
-        flat = bucketed_allreduce(flat, plan, group).div_(n_data)
+        flat = bucketed_allreduce(flat, plan, group).div_(n_batch)
         grads = unflatten_grads(flat, spec)
         del flat
-        grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm, split,
+                                           sum_over_model)
         scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
         dist.all_reduce(scalars, group=process_group(group))
-        loss, ce, aux = (scalars / n_data).unbind()
-        whole = tree_map_paths(opt_state, lambda _, t: gather_whole(t))
-        whole, metrics = update(whole, grads, gnorm, loss,
-                                dict(metrics, ce=ce, aux=aux))
-        return place_tree(whole, o_shard, opt_state), metrics
+        loss, ce, aux = (scalars / n_batch).unbind()
+        gathered = tree_map_paths(opt_state, lambda path, t: gather_whole(
+            t, done.get(path, ())))
+        gathered, metrics = update(gathered, grads, gnorm, loss,
+                                   dict(metrics, ce=ce, aux=aux))
+        return place_tree(gathered, o_shard, opt_state, done), metrics
 
     sharded.shardings = {"params": p_shard, "opt_state": o_shard}
+    sharded.place = lambda opt_state: place_tree(opt_state, o_shard,
+                                                 done=done)
     return sharded
+
+
+def _batch_group(mesh):
+    """The process group over the mesh's batch axes at this rank's other
+    coordinates: ``(mesh, "data")`` without ``pod``, else a group over the
+    ranks of this rank's ``pod`` x ``data`` block."""
+    sizes = axis_sizes(mesh)
+    if "pod" not in sizes:
+        return (mesh, "data")
+    # the rank grid as host ints, outside any dispatch mode: the dry run
+    # builds its step under a fake-tensor mode, which refuses the mesh's
+    # real rank tensor
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        ranks = np.array(mesh.mesh.tolist())
+    names = list(mesh.mesh_dim_names)
+    order = [names.index("pod"), names.index("data")] + [
+        i for i in range(len(names)) if names[i] not in ("pod", "data")]
+    blocks = ranks.transpose(order).reshape(sizes["pod"] * sizes["data"], -1)
+    group, _ = dist.new_subgroups_by_enumeration(
+        [blocks[:, j].tolist() for j in range(blocks.shape[1])])
+    return group
 
 
 def opt_state_axes(params_axes: dict[str, tuple]) -> dict[str, tuple]:

@@ -259,3 +259,303 @@ def reshard_round_trip(rank: int, world: int, directory: Path) -> None:
     wq = state["layers.attn.wq"]           # ("layers", "embed", ...): data
     assert wq.to_local().shape[1] == wq.shape[1] // world
 
+
+
+# ------------------------ tensor parallelism -------------------------- #
+# (the workers of ``tests/test_torch_tensor_parallel.py``: the test writes
+# the reference's unsplit results, computed with JAX in its own process,
+# to ``tp_case.pkl`` in the group's directory; each rank cuts its shard of
+# the reference's weights through ``load_reference_params``)
+TP_MESHES = {2: [((1, 2), ("data", "model"))],
+             4: [((2, 2), ("data", "model")),
+                 ((2, 1, 2), ("pod", "data", "model"))]}
+
+
+def _tp_case(directory: Path) -> dict:
+    import pickle
+    with open(directory / "tp_case.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def _tp_cfg(case: dict, dtype=torch.float32):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(case["arch"], "smoke"),
+                               dtype=dtype, remat=False, **case["over"])
+
+
+def _tp_model(case: dict, mesh, dtype=torch.float32):
+    """The port's model split over ``mesh``'s ``model`` axis, each rank's
+    blocks cut from the reference's weights."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import load_reference_params
+    model = build_model(_tp_cfg(case, dtype), "cpu", seed=None, mesh=mesh)
+    load_reference_params(model, case["params"])
+    return model
+
+
+def _gathered(model, tensors: dict) -> dict:
+    """{name: whole value} of tensors keyed and cut as the model's
+    parameters are (parameters, gradients, optimizer leaves)."""
+    from repro_torch.dist.tensor_parallel import gather_cut, model_group
+    mg = model_group(model)
+    own = dict(model.named_parameters())
+    return {n: (t if mg is None else gather_cut(t, own[n], mg))
+            for n, t in tensors.items()}
+
+
+def _close_to_scale(got: np.ndarray, want: np.ndarray, rtol: float,
+                    what: str) -> None:
+    gap = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    assert gap <= rtol * scale, (what, gap, rtol * scale)
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def _tp_forward(case: dict, mesh, tag: str) -> None:
+    """The whole batch on every rank, the model split: the logits
+    gathered over ``model`` within the case's bound of the reference's
+    (``logits_tol`` of their scale), the loss within 1e-5, every gradient
+    gathered within ``test_loss_and_grads_match_reference``'s bound of
+    it."""
+    from repro_torch.dist.tensor_parallel import model_group
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import reference_paths
+    model = _tp_model(case, mesh).requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    logits, _ = model(batch["tokens"], batch.get("patch_embeds"))
+    mg = model_group(model)
+    if model.tp is not None:
+        assert logits.shape[-1] == model.cfg.vocab_size // mg.size
+        logits = model.tp.gather(logits)
+    _close_to_scale(logits.detach().numpy(), case["logits"],
+                    case["logits_tol"], f"{tag} logits")
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    assert abs(loss.item() - case["loss"]) <= 1e-5 * abs(case["loss"]), \
+        (tag, loss.item(), case["loss"])
+    grads = _gathered(model, {n: (p.grad if p.grad is not None
+                                  else torch.zeros_like(p))
+                              for n, p in model.named_parameters()})
+    got = reference_paths(grads)
+    assert sorted(got) == sorted(case["grads"])
+    for path, want in case["grads"].items():
+        g = got[path].numpy()
+        assert g.shape == want.shape, (tag, path, g.shape, want.shape)
+        tol = case["grad_tol"][path]
+        assert _rel_l2(g, want) <= tol, (tag, path, _rel_l2(g, want), tol)
+
+
+def _tp_steps(case: dict, mesh, tag: str) -> None:
+    """Three sharded steps (the batch over the mesh's batch axes, the
+    model over ``model``) from the reference's weights and AdamW state:
+    the metrics and every parameter, gathered, against the reference's
+    steps, as ``test_train_steps_match_reference`` holds the unsplit
+    step."""
+    from repro_torch.models.params import (opt_state_from_reference,
+                                           reference_paths)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    model = _tp_model(case, mesh).requires_grad_(True)
+    tt = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32, lr=1e-3,
+                                     eps=case["eps"]),
+                     warmup_steps=1, total_steps=6)
+    opt = opt_state_from_reference(case["opt"], tt.opt, "cpu", model=model)
+    step = make_train_step(model, tt, mesh=mesh)
+    for i, want in enumerate(case["steps"]):
+        batch = {k: torch.from_numpy(v) for k, v in want["batch"].items()}
+        opt, met = step(opt, batch)
+        for key in ("loss", "ce", "lr_scale"):
+            w = want["metrics"][key]
+            assert abs(float(met[key]) - w) <= 1e-5 * abs(w) + 1e-7, \
+                (tag, i, key, float(met[key]), w)
+        w = want["metrics"]["grad_norm"]
+        assert abs(float(met["grad_norm"]) - w) <= want["norm_tol"] * w, \
+            (tag, i, float(met["grad_norm"]), w, want["norm_tol"])
+    got = reference_paths(_gathered(model, dict(model.named_parameters())))
+    for path, w in case["final"].items():
+        np.testing.assert_allclose(got[path].detach().numpy(), w, rtol=2e-4,
+                                   atol=2e-5, err_msg=f"{tag} {path}")
+
+
+def _tp_serve(case: dict, mesh, tag: str) -> None:
+    """Prefill and 4 greedy decode steps on the rank's block of the
+    prompts (``batch_block``), the model split: the gathered last-position
+    logits within the case's bound (``logits_tol`` of their scale) of the
+    reference's, and every greedy token equal."""
+    from repro_torch.dist.sharding import batch_block
+    model = _tp_model(case, mesh)
+    serve = case["serve"]
+    prompt = serve["prompt"]
+    index, count = batch_block(mesh, prompt.shape[0])
+    rows = slice(index * prompt.shape[0] // count,
+                 (index + 1) * prompt.shape[0] // count)
+    pe = serve.get("patch_embeds")
+    pe = None if pe is None else torch.from_numpy(pe[rows])
+    cache = model.init_cache(prompt[rows].shape[0], serve["max_len"])
+    if model.layers[0].attn.tp is not None and \
+            model.layers[0].attn.tp.kv_index is None:
+        assert cache["layers"]["k"].shape[3] == model.cfg.n_kv_heads // 2
+    else:
+        assert cache["layers"]["k"].shape[3] == model.cfg.n_kv_heads
+    logits, cache = model.prefill(torch.from_numpy(prompt[rows]), cache, pe)
+    for j, (want_lg, want_tok) in enumerate(zip(serve["logits"],
+                                                serve["tokens"])):
+        assert logits.shape[-1] == model.cfg.vocab_size
+        _close_to_scale(logits.numpy(), want_lg[rows], serve["logits_tol"],
+                        f"{tag} serve step {j}")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        np.testing.assert_array_equal(tok.numpy(), want_tok[rows],
+                                      err_msg=f"{tag} token {j}")
+        if j + 1 < len(serve["logits"]):
+            logits, cache = model.decode(tok, cache)
+
+
+def tp_parity(rank: int, world: int, directory: Path) -> None:
+    """For every mesh of ``TP_MESHES[world]``: the forward, the loss and
+    the gradients, three train steps, and prefill with decode of the split
+    model against the reference's unsplit results (``tp_case.pkl``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    case = _tp_case(directory)
+    for shape, names in TP_MESHES[world]:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        tag = f"{case['name']} on {shape}"
+        _tp_forward(case, mesh, tag)
+        _tp_steps(case, mesh, tag)
+        _tp_serve(case, mesh, tag)
+
+
+def tp_norm(rank: int, world: int, directory: Path) -> None:
+    """The clip's global norm on a split model's gradients, each rank
+    holding its blocks and the replicated leaves: the norm of the whole
+    gradients, the split leaves counted once over ``model``, the
+    replicated ones once (summing them over ``model`` as well reads
+    sqrt(2) times their part)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.dist.tensor_parallel import all_reduce, model_group
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.grad_utils import global_norm
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b", "smoke"),
+                              dtype=torch.float32)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
+                                                               "model"))
+    model = build_model(cfg, "cpu", seed=3, mesh=mesh)
+    whole = build_model(cfg, "cpu", seed=3)
+    mg = model_group(model)
+    params = dict(model.named_parameters())
+    split = frozenset(n for n, p in params.items() if hasattr(p, "cut"))
+    assert split and len(split) < len(params)
+    got = global_norm(params, split, lambda t: all_reduce(t, mg))
+    want = global_norm(dict(whole.named_parameters()))
+    assert abs(got.item() - want.item()) <= 1e-6 * want.item(), (got, want)
+    twice = global_norm(params, frozenset(params),
+                        lambda t: all_reduce(t, mg))
+    assert twice.item() > want.item() * (1 + 1e-3), (twice, want)
+
+
+def _pod_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2-vl-2b", "smoke"),
+                               remat=False, dtype=torch.float32)
+
+
+def pod_split_step(rank: int, world: int, directory: Path) -> None:
+    """On a (2, 2, 1) ``("pod", "data", "model")`` mesh: each rank's rows
+    are the block the reference's ``batch_sharding`` over ``("pod",
+    "data")`` gives it (ranks that differ only in ``pod`` hold different
+    rows), and 2 sharded steps equal the one-process step on the whole
+    batch (loss, gradient norm and every parameter within 1e-6 of their
+    scale, float32)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.sharding import batch_block, batch_sharding
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    mesh = init_device_mesh("cpu", (2, 2, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    assert batch_sharding(mesh, ndim=2, batch_size=4).spec == \
+        (("pod", "data"),)
+    index, count = batch_block(mesh, 4)
+    pod, data = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
+    assert (index, count) == (2 * pod + data, 4)
+    blocks = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(blocks, torch.tensor([index]))
+    coords = mesh.mesh.reshape(-1).tolist()
+    by_rank = {r: int(blocks[r]) for r in range(world)}
+    for r in coords:                    # pod-only neighbours differ
+        p, rest = divmod(coords.index(r), 2)
+        other = coords[(1 - p) * 2 + rest]
+        assert by_rank[r] != by_rank[other], by_rank
+    cfg = _pod_cfg()
+    # eps 1: an update linear in its gradient (``test_torch_tensor_parallel
+    # .EPS``), so that the zero-initialised biases' near-cancelling
+    # gradients cannot flip an update's sign between the two orders of sum
+    tcfg = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32, lr=1e-3,
+                                       eps=1.0),
+                       warmup_steps=1, total_steps=6)
+    runs = []
+    for m in (None, mesh):
+        model = build_model(cfg, "cpu", seed=None)
+        _, opt = init_train_state(model, 0, tcfg)
+        step = make_train_step(model, tcfg, mesh=m)
+        log = []
+        for i in range(2):
+            rng = np.random.default_rng(40 + i)
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)))
+            pe = torch.from_numpy(rng.normal(0, 0.02, (4, cfg.n_patches,
+                                                        cfg.d_model)
+                                             ).astype(np.float32))
+            opt, met = step(opt, {"tokens": tok, "labels": tok,
+                                  "patch_embeds": pe})
+            log.append({k: float(v) for k, v in met.items()})
+        runs.append((model, log))
+    (whole, want), (sharded, got) = runs
+    for a, b in zip(got, want):
+        for key in ("loss", "ce", "grad_norm", "lr_scale"):
+            assert abs(a[key] - b[key]) <= 1e-6 * abs(b[key]), (key, a, b)
+    for (name, p), q in zip(sharded.named_parameters(), whole.parameters()):
+        gap = (p - q).abs().max().item()
+        assert gap <= 1e-6 * q.abs().max().item(), (name, gap)
+
+
+def tp_bf16_band(rank: int, world: int, directory: Path) -> None:
+    """Three bf16 steps of qwen2-vl-2b's smoke config at 4 q heads over 2
+    kv heads on a (1, 2) mesh and unsplit, from one seed and the same
+    batches: every split loss within the band (``band.json``, relative) of
+    the unsplit step's.  (Not the gradient norms: a bf16 step's own norm
+    moves by tens of percent from its float32 one at these widths.)"""
+    import json
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import TrainConfig, Trainer, make_train_step
+    band = json.loads((directory / "band.json").read_text())
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b", "smoke"), n_heads=4,
+                              n_kv_heads=2, dtype=torch.bfloat16)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
+                                                               "model"))
+    tcfg = TrainConfig(total_steps=10, warmup_steps=1)
+    logs = []
+    for m in (None, mesh):
+        trainer = Trainer(build_model(cfg, "cpu", seed=None, mesh=m), tcfg,
+                          seed=0)
+        if m is not None:
+            trainer.step_fn = make_train_step(trainer.model, tcfg, mesh=m)
+        batches = []
+        for i in range(3):
+            rng = np.random.default_rng(50 + i)
+            tok = rng.integers(0, cfg.vocab_size, (4, 16))
+            batches.append({"tokens": tok, "labels": tok,
+                            "patch_embeds": rng.normal(
+                                0, 0.02, (4, cfg.n_patches, cfg.d_model)
+                            ).astype(np.float32)})
+        logs.append(trainer.run(batches))
+    for got, want in zip(logs[1], logs[0]):
+        assert abs(got["loss"] - want["loss"]) <= band * abs(want["loss"]), \
+            (got["loss"], want["loss"], band)
