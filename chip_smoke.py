@@ -91,10 +91,11 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               route, each launch held to its plain version, and its loss
               and gradients to the plain route's within the growth
               measured in the run times an a-priori launch difference,
-              a gate that bf16-rounded kernel outputs must fail; then one
-              bf16 step each of rwkv6-1.6b whole (48 ``rwkv6``) and
-              zamba2-7b at full width and 6 of its 81 layers (12
-              ``ssd_scan``, 2 ``flash_attention``), with the same gates;
+              a gate that bf16-rounded kernel outputs must fail; then two
+              bf16 steps each of rwkv6-1.6b whole (48 ``rwkv6`` a step)
+              and zamba2-7b at full width and 6 of its 81 layers (12
+              ``ssd_scan``, 2 ``flash_attention`` a step), with the same
+              gates, their losses phase 17's unsplit ones;
 16. dist   -- ``repro_torch.dist`` on a 1-rank NCCL group and
               ``make_host_mesh()``'s (1, 1) mesh: the paper's tuner fit on
               ``ici_environment``'s history (the card's NVLink modelled in
@@ -130,7 +131,21 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               on both ranks; a float32 control at 2 layers (its weights
               rescaled to std 1/sqrt(fan-in), ``_tp_f32_control``), split
               against unsplit on the card, within 1e-5 with equal tokens.
-              Each
+              Then the scan families on the same two ranks, each region
+              split (``TP_SCAN_ARCHS``): zamba2-7b's Mamba2 layers (56 of
+              112 SSD heads a rank, w_in cut by its [z | x | B | C | dt]
+              index map), its shared block (16 of 32 q and kv heads) and
+              vocabulary, and rwkv6-1.6b's time mix (16 of 32 heads),
+              channel mix and vocabulary: phase 15's two bf16 steps
+              (zamba2-7b at 6 layers, rwkv6-1.6b whole, 4 x 1024; exact
+              launches a rank and step; losses within
+              ``TP_BF16_LOSS_RTOL`` of phase 15's), a checked forward and
+              backward, a prefill of 8 x 2048 and 8 decode steps at full
+              depth (81 ``ssd_scan`` and 13 ``flash_attention``, or 24
+              ``rwkv6``, a prefill; 24 ``rwkv6`` a decode step) and a
+              checked prefill and decode step, every launch at the local
+              shapes held to its plain version, and the float32 control
+              at 2 layers (zamba2-7b's shared block applied once).  Each
               rank's step p50, peak memory and prefill time are printed
               beside the card's name and power limit; two processes share
               its SMs, so none is a speed figure for the split.  A rank's
@@ -141,15 +156,20 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               at once: ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
               decode_32k on the (16, 16) and (2, 16, 16) meshes of a fake
               256- and 512-rank group, for qwen2-vl-2b x train_4k on both
-              and for llama3-405b x decode_32k on the (16, 16) one (fake
-              tensors on the card's device type: nothing allocated, no
-              kernel launched; the dense families split over ``model``),
+              and for llama3-405b x decode_32k and zamba2-7b x decode_32k
+              on the (16, 16) one (fake tensors on the card's device type:
+              nothing allocated, no kernel launched; every family but MoE
+              and MLA split over ``model``),
               its cost mode for rwkv6-1.6b x decode_32k, then
               ``repro_torch.launch.roofline`` over those rows; an error
               row, a wrong ``n_devices`` or zero FLOPs or peak fails the
               run (the CLI writes error rows with exit 0), and so does a
               qwen2-vl-2b x train_4k row past 4.0e14 FLOPs or 95 GB a rank
-              at 16x16, or a 2x16x16 row whose FLOPs are not half of it;
+              at 16x16, or a 2x16x16 row whose FLOPs are not half of it,
+              or the split decode rows at 16x16 past their gates
+              (``SPLIT_DECODE_GATES``: zamba2-7b within 2.44e10 FLOPs and
+              12 GiB, its argument bytes the reference's; rwkv6-1.6b
+              within 2.9e9 FLOPs), or without their split plan's line;
               ``python -m repro_torch.analysis src/repro_torch`` must find
               nothing.  Each row is printed beside the card's name and
               power limit.
@@ -833,6 +853,8 @@ def phase_kernel_flash_attention(device) -> dict:
             ((12, 2, 128), "VLM GQA shape (qwen2-vl-2b)", None),
             ((6, 1, 128), "VLM GQA shape, a rank's heads at model = 2 "
              "(qwen2-vl-2b, phase 17)", None),
+            ((16, 16, 112), "hybrid shared block, a rank's heads at "
+             "model = 2 (zamba2-7b, phase 17)", None),
             ((128, 128, 192), "MLA shape (deepseek-v3-671b)", 16)):
         r = _attention_case(device, torch.bfloat16,
                             (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, hq, hkv,
@@ -1125,8 +1147,9 @@ def phase_kernel_ssd_scan(device) -> dict:
     """At the serve path's shape (zamba2-7b prefill: H = 112, P = N = 64,
     chunk 256, final state) and at a ragged L = 2000 with a non-zero initial
     state, in bf16 and f32; in bf16 also at slow decays, with the bf16-O
-    control, and the serve shape over the batch.  The row reported is the
-    serve shape in bf16."""
+    control, the serve shape over the batch, and a rank's 56 heads at
+    ``model`` = 2 (phase 17's).  The row reported is the serve shape in
+    bf16."""
     import torch
     from repro_torch.kernels.ssm_scan import ssd_scan_cuda
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, 112, 64, 64)
@@ -1138,6 +1161,10 @@ def phase_kernel_ssd_scan(device) -> dict:
                   "ragged L, initial state")
     _ssd_case(device, torch.bfloat16, (2, SERVE_PROMPT, 112, 64, 64), 256,
               True, "slow decays, initial state", SSD_SLOW_DT, control=True)
+    _ssd_case(device, torch.bfloat16,
+              (SERVE_BATCH, SERVE_PROMPT, 112 // TP_RANKS, 64, 64), 256,
+              False, f"a rank's heads at model = {TP_RANKS} (zamba2-7b, "
+              f"phase 17)")
     # B = 1 puts one block on each of 112 SMs, so its time is one block's
     # chain of steps; B = 3 fills the card's 3 x 132 block slots once, and
     # B = 8 needs 2.26 such waves
@@ -1255,7 +1282,8 @@ def phase_kernel_rwkv6(device) -> dict:
     """At the serve path's prefill shape (rwkv6-1.6b: B = 8, L = 2048,
     H = 32, K = V = 64, chunk 16, from a zero state), at its decode shape
     (L = 1, chunk 1, from a carried state) and at a ragged L = 2000 with an
-    initial state, final state held in each, in bf16 and f32; the row
+    initial state, final state held in each, in bf16 and f32, and a rank's
+    16 heads of the prefill at ``model`` = 2 (phase 17's) in bf16; the row
     reported is the prefill shape in bf16, the path's dtype; then the
     prefill shape in bf16 over B = 1, 2, 4, 8.  The WKV arithmetic is
     float32 whatever the inputs' dtype, so the bound takes the float32
@@ -1270,6 +1298,9 @@ def phase_kernel_rwkv6(device) -> dict:
                     "decode shape")
         _rwkv6_case(device, dtype, (2, 2000, 32, 64), 16, True,
                     "ragged L, initial state")
+    _rwkv6_case(device, torch.bfloat16,
+                (SERVE_BATCH, SERVE_PROMPT, 32 // TP_RANKS, 64), 16, False,
+                f"a rank's heads at model = {TP_RANKS} (rwkv6-1.6b, phase 17)")
     # One block walks one (batch, head)'s 128 chunks in order: B = 1-4 put
     # one block on each of 32-128 SMs, so their time is one block's chain;
     # B = 8 puts two blocks on most SMs
@@ -2348,12 +2379,13 @@ TRAIN_ARCH = "qwen2-vl-2b"      # the dense model whose training state fits
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024    # the reference launcher's global batch
 TRAIN_MICRO = 2                 # as examples/train_lm.py trains
 TRAIN_STEPS, TRAIN_WARMUP = 12, 3   # on 2 fixed batches, repeated
-# one bf16 step each for the two scan kernels' families, batch 4 x 1024:
-# rwkv6-1.6b whole; zamba2-7b at full width and 6 of its 81 layers, one
-# application of the shared block (its whole training state would be ~81
-# GB); None: whole
+# bf16 steps of the two scan kernels' families, batch 4 x 1024: rwkv6-1.6b
+# whole; zamba2-7b at full width and 6 of its 81 layers, one application
+# of the shared block (its whole training state would be ~81 GB); None:
+# whole.  Their losses are phase 17's unsplit ones
 TRAIN_ONE_STEP = {"rwkv6-1.6b": None, "zamba2-7b": 6}
 TRAIN_ONE_BATCH = 4
+TRAIN_ONE_STEPS = 2             # on batches of seeds 0 and 1
 # the float32 kernel-against-plain step's depth
 TRAIN_F32_LAYERS = {TRAIN_ARCH: 4, "rwkv6-1.6b": 4, "zamba2-7b": 6}
 
@@ -2786,14 +2818,15 @@ def _train_whole(device) -> dict[str, int]:
     return counts
 
 
-def _train_one_step(device, arch: str) -> dict[str, int]:
-    """One bf16 train step of ``arch`` (cut to ``TRAIN_ONE_STEP``'s depth)
-    at batch 4 x 1024 through the kernels: exact launch counts, a finite
-    loss and gradient norm, every launch held to its plain version, and
-    the float32 kernel-against-plain gate."""
+def _train_one_step(device, arch: str) -> tuple[dict[str, int], list]:
+    """``TRAIN_ONE_STEPS`` bf16 train steps of ``arch`` (cut to
+    ``TRAIN_ONE_STEP``'s depth) at batch 4 x 1024 through the kernels:
+    exact launch counts, finite losses and gradient norms, every launch of
+    a forward and backward held to its plain version, and the float32
+    kernel-against-plain gate.  -> (the steps' launches, their losses)."""
     import torch
     from repro_torch.models.model import build_model
-    from repro_torch.train.loop import TrainConfig, Trainer
+    from repro_torch.train.loop import Trainer
 
     full = _train_cfg(arch)
     cfg = _train_cfg(arch, TRAIN_ONE_STEP[arch])
@@ -2801,45 +2834,62 @@ def _train_one_step(device, arch: str) -> dict[str, int]:
     cut = (f" (cut: {cfg.n_layers} of its {full.n_layers} layers, full "
            f"width)" if cfg.n_layers < full.n_layers else "")
     model = build_model(cfg, device, seed=None)
-    trainer = Trainer(model, TrainConfig(total_steps=10, warmup_steps=0),
-                      seed=0)
+    trainer = Trainer(model, one_step_train_config(), seed=0)
     n_params = sum(p.numel() for p in trainer.params.values())
-    batch = train_batch(cfg, device, TRAIN_ONE_BATCH, seed=0)
+    batches = [train_batch(cfg, device, TRAIN_ONE_BATCH, seed=s)
+               for s in range(TRAIN_ONE_STEPS)]
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    (m,) = trainer.run([batch])
+    mets = trainer.run(batches)
     counts = _lm_counts(launch_counts())
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    want = train_launches(cfg, 1)
+    want = {n: c * TRAIN_ONE_STEPS
+            for n, c in train_launches(cfg, 1).items()}
     print(f"{tag} {cfg.n_layers} layers{cut}, {n_params / 1e9:.3f} B "
-          f"parameters in bf16: one step at batch {TRAIN_ONE_BATCH} x "
-          f"{TRAIN_SEQ} in {m['step_time_s'] * 1e3:.1f} ms (the first), loss "
-          f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, peak memory "
-          f"{peak_gb:.3f} GB; launches {counts}")
-    check(counts == want, f"one train step launched {counts}, not {want}")
+          f"parameters in bf16: {TRAIN_ONE_STEPS} steps at batch "
+          f"{TRAIN_ONE_BATCH} x {TRAIN_SEQ} in " + " / ".join(
+              f"{m['step_time_s'] * 1e3:.1f}" for m in mets)
+          + " ms, losses " + " ".join(f"{m['loss']:.6f}" for m in mets)
+          + ", grad norms " + " ".join(f"{m['grad_norm']:.4f}" for m in mets)
+          + f", peak memory {peak_gb:.3f} GB; launches {counts}")
+    check(counts == want, f"{TRAIN_ONE_STEPS} train steps launched {counts}, "
+          f"not {want}")
     check(all(abs(m[k]) < float("inf") and m[k] == m[k]
-              for k in ("loss", "grad_norm")),
-          f"a non-finite loss or gradient norm: {m}")
-    _checked_train_grads(model, batch, "bf16")
-    del trainer, model, batch
+              for m in mets for k in ("loss", "grad_norm")),
+          f"a non-finite loss or gradient norm: {mets}")
+    _checked_train_grads(model, batches[0], "bf16")
+    del trainer, model, batches
     torch.cuda.empty_cache()
     _backward_split(device, cfg, TRAIN_ONE_BATCH)
     _train_f32_gate(device, arch, TRAIN_ONE_BATCH)
-    return {n: counts.get(n, 0) for n in _kernel_modules()}
+    return ({n: counts.get(n, 0) for n in _kernel_modules()},
+            [m["loss"] for m in mets])
 
 
-def phase_train(device) -> dict[str, int]:
-    """Phase 15 (see the module's docstring): the counts of the three
-    models' timed train steps (``reset_launch_counts`` just before each,
-    read just after)."""
+def one_step_train_config():
+    """The schedule of phase 15's scan-family steps and of phase 17's
+    split ones: no warmup over 10 steps (the first step's rate is 0)."""
+    from repro_torch.train.loop import TrainConfig
+    return TrainConfig(total_steps=10, warmup_steps=0)
+
+
+def phase_train(device) -> tuple[dict[str, int], dict[str, list]]:
+    """Phase 15 (see the module's docstring): (the counts of the three
+    models' timed train steps, ``reset_launch_counts`` just before each
+    and read just after; {arch: the bf16 losses} of the scan families'
+    steps, which phase 17 holds its split steps to)."""
     import torch
     torch.cuda.empty_cache()
     counts = dict.fromkeys(_kernel_modules(), 0)
-    for part in (_train_whole(device),
-                 *(_train_one_step(device, a) for a in TRAIN_ONE_STEP)):
+    losses = {}
+    parts = [_train_whole(device)]
+    for arch in TRAIN_ONE_STEP:
+        part, losses[arch] = _train_one_step(device, arch)
+        parts.append(part)
+    for part in parts:
         for n, c in part.items():
             counts[n] += c
-    return counts
+    return counts, losses
 
 
 # --------------------------------------------------------------------- #
@@ -3210,14 +3260,20 @@ TP_F32_RTOL = 1e-5
 # band tests/test_torch_tensor_parallel.py holds the CPU to
 # (BF16_LOSS_RTOL)
 TP_BF16_LOSS_RTOL = 2.0 ** -8
-TP_TIMEOUT_S = 400              # both ranks; a passing phase takes < 150 s
+# the scan families split over the same (1, 2) mesh after qwen2-vl-2b:
+# phase 15's bf16 steps (zamba2-7b at 6 layers, rwkv6-1.6b whole, batch
+# 4 x 1024, their losses held to phase 15's), then each whole at full
+# depth through a prefill of 8 x 2048 and 8 decode steps
+TP_SCAN_ARCHS = ("zamba2-7b", "rwkv6-1.6b")
+TP_TIMEOUT_S = 800              # both ranks; a passing phase takes < 400 s
 TP_COLLECTIVE_TIMEOUT_S = 120   # a rank waiting past this raises
 
 
 def tp_worker(rank: int, directory: str) -> int:
     """One rank of phase 17, in a process of its own: joins the gloo group
-    on a ``FileStore`` in ``directory``, runs ``_tp_rank`` and writes its
-    results to ``rank<r>.json`` there.  A failure raises (exit 1)."""
+    on a ``FileStore`` in ``directory``, runs ``_tp_model`` of qwen2-vl-2b
+    and of each of ``TP_SCAN_ARCHS`` and writes their results to
+    ``rank<r>.json`` there.  A failure raises (exit 1)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3231,7 +3287,8 @@ def tp_worker(rank: int, directory: str) -> int:
         rank=rank, world_size=TP_RANKS,
         timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
     try:
-        out = _tp_rank(rank, device)
+        out = {arch: _tp_model(rank, device, arch)
+               for arch in (TRAIN_ARCH,) + TP_SCAN_ARCHS}
     finally:
         dist.destroy_process_group()
     with open(f"{directory}/rank{rank}.json", "w") as f:
@@ -3239,41 +3296,52 @@ def tp_worker(rank: int, directory: str) -> int:
     return 0
 
 
-def _tp_rank(rank: int, device) -> dict:
-    """Phase 17 on one rank (see ``phase_tp``): -> its losses, launches,
-    times and peaks."""
+def _tp_model(rank: int, device, arch: str) -> dict:
+    """Phase 17 for ``arch`` on one rank (see ``phase_tp``), split over the
+    (1, 2) mesh: its train steps (qwen2-vl-2b: phase 16's 4 steps of 8 x
+    1024 in 2 microbatches; a scan family: phase 15's ``TRAIN_ONE_STEPS``
+    at its depth and batch), exact launches a step, a microbatch's forward
+    and backward with every launch held to its plain version; then at full
+    depth (the trained model, or one from the seed where training cut the
+    depth) a prefill of 8 x 2048 and ``TP_SERVE_STEPS`` decode steps after
+    a first-use run, exact launches, a prefill and a decode step with
+    every launch held to its plain version; and the float32 control.  ->
+    its losses, launches, times and peaks."""
     import torch
-    from torch.distributed.device_mesh import init_device_mesh
     import repro_torch.train.loop as loop
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import build_model
 
-    tag = f"[tp rank {rank}]"
-    mesh = init_device_mesh(torch.device(device).type, (1, TP_RANKS),
-                            mesh_dim_names=("data", "model"))
-    cfg = _train_cfg(TRAIN_ARCH)
-    tcfg = loop.TrainConfig(microbatches=TRAIN_MICRO,
-                            warmup_steps=TRAIN_WARMUP,
-                            total_steps=TRAIN_STEPS)
+    device = torch.device(device)
+    tag = f"[tp rank {rank} {arch}]"
+    mesh = _tp_mesh(device)
+    whole = arch == TRAIN_ARCH
+    cfg = _train_cfg(arch, None if whole else TRAIN_ONE_STEP[arch])
+    tcfg = (loop.TrainConfig(microbatches=TRAIN_MICRO,
+                             warmup_steps=TRAIN_WARMUP,
+                             total_steps=TRAIN_STEPS) if whole
+            else one_step_train_config())
+    rows = TRAIN_BATCH if whole else TRAIN_ONE_BATCH
+    n_steps = DIST_STEPS if whole else TRAIN_ONE_STEPS
     t0 = time.perf_counter()
     model = build_model(cfg, device, seed=None, mesh=mesh)
     _, opt = loop.init_train_state(model, 0, tcfg)
     torch.cuda.synchronize()
     plan = model.split_plan
     check(model.cfg.use_kernel is True and all(plan.split.values()),
-          f"{tag} qwen2-vl-2b at model = {TP_RANKS} does not split every "
-          f"region on the kernel route: {plan.describe()}")
+          f"{tag} at model = {TP_RANKS} does not split every region on the "
+          f"kernel route: {plan.describe()}")
     n_local = sum(p.numel() for p in model.parameters())
-    print(f"{tag} {plan.describe()}; {n_local / 1e9:.3f} B parameters on "
-          f"this rank, built whole from the seed and cut in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"{tag} {plan.describe()}; {cfg.n_layers} layers, "
+          f"{n_local / 1e9:.3f} B parameters on this rank, built whole from "
+          f"the seed and cut in {time.perf_counter() - t0:.2f} s")
     step = loop.make_train_step(model, tcfg, mesh=mesh)
-    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
-    want = train_launches(cfg, TRAIN_MICRO)
+    batches = [train_batch(cfg, device, rows, seed=s) for s in (0, 1)]
+    want = train_launches(cfg, tcfg.microbatches)
     counts = dict.fromkeys(_kernel_modules(), 0)
     mets, times = [], []
     torch.cuda.reset_peak_memory_stats(device)
-    for i in range(DIST_STEPS):
+    for i in range(n_steps):
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3287,26 +3355,32 @@ def _tp_rank(rank: int, device) -> dict:
         mets.append({k: float(v) for k, v in m.items()})
     train_peak = torch.cuda.max_memory_allocated(device) / 1e9
     p50 = statistics.median(times[1:])
-    print(f"{tag} {DIST_STEPS} split steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
-          f"{TRAIN_MICRO} microbatches, remat: losses "
+    print(f"{tag} {n_steps} split steps of {rows} x {TRAIN_SEQ}, "
+          f"{tcfg.microbatches} microbatch(es), remat: losses "
           + " ".join(f"{m['loss']:.6f}" for m in mets) + "; grad norms "
           + " ".join(f"{m['grad_norm']:.6f}" for m in mets) + "; step times "
           + " ".join(f"{t * 1e3:.1f}" for t in times) + f" ms (p50 of steps "
-          f"2-{DIST_STEPS}: {p50 * 1e3:.1f} ms); peak memory "
-          f"{train_peak:.3f} GB; {want['flash_attention']} flash_attention a "
-          f"step")
-    half = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+          f"2-{n_steps}: {p50 * 1e3:.1f} ms); peak memory {train_peak:.3f} "
+          f"GB; launches a step {want}")
+    micro = {k: v[:rows // tcfg.microbatches] for k, v in batches[0].items()}
     reset_launch_counts()
-    _checked_train_grads(model, half, f"bf16 split, rank {rank}")
+    _checked_train_grads(model, micro, f"bf16 split, rank {rank}")
     reset_launch_counts()
-    del opt, step, batches, half
+    del opt, step, batches, micro
     model.requires_grad_(False)
+    if cfg.n_layers < _train_cfg(arch).n_layers:
+        del model
+        torch.cuda.empty_cache()
+        cfg = _train_cfg(arch)
+        model = build_model(cfg, device, seed=0, mesh=mesh)
     torch.cuda.empty_cache()
 
     prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
                            device=device)
     pe = serve_patch_embeds(cfg, device)
-    serve(model, prompts, 2, patch_embeds=pe)       # first use of each path
+    # first use of each path, on one prompt: a rank's prefill of 8 moves
+    # its partial sums through gloo's host copies for tens of seconds
+    serve(model, prompts[:1], 2, patch_embeds=None if pe is None else pe[:1])
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe)
@@ -3317,11 +3391,12 @@ def _tp_rank(rank: int, device) -> dict:
           f"decode steps launched {got}, not {want_serve}")
     for n, c in got.items():
         counts[n] += c
-    print(f"{tag} split prefill of {SERVE_BATCH} x {SERVE_PROMPT} "
-          f"({cfg.n_patches} patch embeddings a row) in {res.prefill_ms:.3f} "
-          f"ms, {TP_SERVE_STEPS} greedy decode steps p50 "
-          f"{res.decode_p50_ms():.3f} ms; peak memory {serve_peak:.3f} GB; "
-          f"launches {got}")
+    print(f"{tag} {cfg.n_layers} layers: split prefill of {SERVE_BATCH} x "
+          f"{SERVE_PROMPT}" + (f" ({cfg.n_patches} patch embeddings a row)"
+                               if pe is not None else "")
+          + f" in {res.prefill_ms:.3f} ms, {TP_SERVE_STEPS} greedy decode "
+          f"steps p50 {res.decode_p50_ms():.3f} ms; peak memory "
+          f"{serve_peak:.3f} GB; launches {got}")
     check(res.tokens.shape == (SERVE_BATCH, TP_SERVE_STEPS + 1)
           and bool((res.tokens >= 0).all()
                    and (res.tokens < cfg.vocab_size).all()),
@@ -3337,8 +3412,14 @@ def _tp_rank(rank: int, device) -> dict:
            "counts": counts}
     del model, res, prompts, pe
     torch.cuda.empty_cache()
-    out["control"] = _tp_f32_control(device, mesh, tag)
+    out["control"] = _tp_f32_control(device, mesh, tag, arch)
     return out
+
+
+def _tp_mesh(device):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device.type, (1, TP_RANKS),
+                            mesh_dim_names=("data", "model"))
 
 
 def _conditioned(model) -> None:
@@ -3360,32 +3441,39 @@ def _conditioned(model) -> None:
                 p.mul_(float(whole_shape(p)[0]) ** -0.5 / scale)
 
 
-def _tp_f32_control(device, mesh, tag: str) -> dict:
-    """qwen2-vl-2b at full width and ``TP_F32_LAYERS`` layers in float32,
-    its weights ``_conditioned``, split over ``mesh`` and unsplit on this
-    rank, from the same seed: two
-    train steps (losses, gradient norms; AdamW's eps 1), then a prefill
-    of the serve
-    prompts and ``TP_SERVE_STEPS`` greedy decode steps (last-position
-    logits, tokens), the split ones within ``TP_F32_RTOL`` (relative; the
-    logits of their scale) of the unsplit ones, the tokens equal."""
+def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
+    """``arch`` at full width and ``TP_F32_LAYERS`` layers in float32
+    (zamba2-7b's shared block applied once, after its second layer), its
+    weights ``_conditioned``, split over ``mesh`` and unsplit on this
+    rank, from the same seed: two train steps (losses, gradient norms;
+    AdamW's eps 1; qwen2-vl-2b at phase 15's batch and microbatches, the
+    scan families at theirs), then a prefill of the serve prompts and
+    ``TP_SERVE_STEPS`` greedy decode steps (last-position logits,
+    tokens), the split ones within ``TP_F32_RTOL`` (relative; the logits
+    of their scale) of the unsplit ones, the tokens equal."""
+    import dataclasses
     import torch
     import repro_torch.train.loop as loop
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = _train_cfg(TRAIN_ARCH, TP_F32_LAYERS, torch.float32)
+    cfg = _train_cfg(arch, TP_F32_LAYERS, torch.float32)
+    if cfg.hybrid_attn_every:
+        cfg = dataclasses.replace(cfg, hybrid_attn_every=TP_F32_LAYERS)
+    whole = arch == TRAIN_ARCH
     # AdamW's eps 1, so that an update is linear in its gradient: at 1e-8
     # the first update is each gradient element's sign times the rate, and
     # a zero-initialised bias's near-cancelling elements take either sign
     # in either order of sum (tests/test_torch_tensor_parallel.py's EPS)
     tcfg = loop.TrainConfig(opt=AdamWConfig(eps=1.0),
-                            microbatches=TRAIN_MICRO, warmup_steps=1,
-                            total_steps=TRAIN_STEPS)
-    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+                            microbatches=TRAIN_MICRO if whole else 1,
+                            warmup_steps=1, total_steps=TRAIN_STEPS)
+    rows = TRAIN_BATCH if whole else TRAIN_ONE_BATCH
+    batches = [train_batch(cfg, device, rows, seed=s) for s in (0, 1)]
     prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
                            device=device)
-    pe = serve_patch_embeds(cfg, device).float()
+    pe = serve_patch_embeds(cfg, device)
+    pe = None if pe is None else pe.float()
     runs = []
     for m in (mesh, None):
         model = build_model(cfg, device, seed=0, mesh=m)
@@ -3413,22 +3501,26 @@ def _tp_f32_control(device, mesh, tag: str) -> dict:
             "logits": max(((a - b).abs().max() / b.abs().max()).item()
                           for a, b in zip(got_l, want_l))}
     same = bool(torch.equal(got_t, want_t))
-    print(f"{tag} float32 control at {TP_F32_LAYERS} layers, full width: "
-          f"split against unsplit on this rank, 2 steps and a prefill with "
-          f"{TP_SERVE_STEPS} greedy decode steps: relative gaps "
+    print(f"{tag} {arch} float32 control at {TP_F32_LAYERS} layers, full "
+          f"width: split against unsplit on this rank, 2 steps and a prefill "
+          f"with {TP_SERVE_STEPS} greedy decode steps: relative gaps "
           + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
           + f" (gate {TP_F32_RTOL:g}); greedy tokens equal: {same}")
     check(all(v <= TP_F32_RTOL for v in gaps.values()) and same,
-          f"{tag} the split float32 model differs from the unsplit one: "
+          f"{tag} the split float32 {arch} differs from the unsplit one: "
           f"{gaps}, tokens equal {same}")
     return gaps
 
 
-def phase_tp(device, unsplit_losses: list[float]) -> dict[str, int]:
+def phase_tp(device, unsplit_losses: list[float],
+             scan_losses: dict[str, list]) -> dict[str, int]:
     """Phase 17 (see the module's docstring): ``TP_RANKS`` processes
-    (``tp_worker``) share the card on a gloo group; -> the launches of
-    their timed split steps and serve runs, summed over the ranks (each
-    rank resets its counts just before each and reads them just after).
+    (``tp_worker``) share the card on a gloo group; qwen2-vl-2b's split
+    bf16 losses are held to phase 16's unsharded ones
+    (``unsplit_losses``), each scan family's to phase 15's
+    (``scan_losses``); -> the launches of their timed split steps and
+    serve runs, summed over the ranks and models (each rank resets its
+    counts just before each and reads them just after).
     Two NCCL ranks cannot share one card (NCCL 2.28 refuses them:
     "ncclInvalidUsage ... Duplicate GPU detected : rank 0 and rank 1 both
     on CUDA device", at the first collective), so the group is gloo's,
@@ -3464,28 +3556,38 @@ def phase_tp(device, unsplit_losses: list[float]) -> dict[str, int]:
         for r in range(TP_RANKS):
             with open(f"{d}/rank{r}.json") as f:
                 results.append(json.load(f))
-    losses = results[0]["losses"]
-    check(all(res["losses"] == losses and res["tokens"] ==
-              results[0]["tokens"] for res in results),
-          "the ranks of one model group disagree on the losses or tokens")
-    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, unsplit_losses)]
-    print(f"[tp] bf16 split losses " + " ".join(f"{x:.6f}" for x in losses)
-          + " against phase 16's unsharded " + " ".join(
-              f"{x:.6f}" for x in unsplit_losses) + ": relative gaps "
-          + " ".join(f"{g:.2e}" for g in gaps) + f" (band "
-          f"{TP_BF16_LOSS_RTOL:.4g})")
-    check(len(gaps) == DIST_STEPS and max(gaps) <= TP_BF16_LOSS_RTOL,
-          f"the split bf16 losses leave the band: {gaps}")
     smi = smi_line()
-    for r, res in enumerate(results):
-        print(f"[tp] rank {r}: step p50 {res['step_p50_ms']:.1f} ms, train "
-              f"peak {res['train_peak_gb']:.3f} GB; prefill "
-              f"{res['prefill_ms']:.3f} ms, decode p50 "
-              f"{res['decode_p50_ms']:.3f} ms, serve peak "
-              f"{res['serve_peak_gb']:.3f} GB; card: {smi} (two processes "
-              f"share its SMs: no speed figure for the split)")
-    counts = {n: sum(res["counts"][n] for res in results)
-              for n in _kernel_modules()}
+    want_losses = {TRAIN_ARCH: (unsplit_losses, "phase 16's unsharded",
+                                DIST_STEPS)}
+    for arch in TP_SCAN_ARCHS:
+        want_losses[arch] = (scan_losses[arch], "phase 15's unsplit",
+                             TRAIN_ONE_STEPS)
+    counts = dict.fromkeys(_kernel_modules(), 0)
+    for arch, (unsplit, source, n_steps) in want_losses.items():
+        runs = [res[arch] for res in results]
+        losses = runs[0]["losses"]
+        check(all(run["losses"] == losses and run["tokens"] ==
+                  runs[0]["tokens"] for run in runs),
+              f"the ranks of one model group disagree on {arch}'s losses or "
+              f"tokens")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, unsplit)]
+        print(f"[tp] {arch} bf16 split losses "
+              + " ".join(f"{x:.6f}" for x in losses) + f" against {source} "
+              + " ".join(f"{x:.6f}" for x in unsplit) + ": relative gaps "
+              + " ".join(f"{g:.2e}" for g in gaps) + f" (band "
+              f"{TP_BF16_LOSS_RTOL:.4g})")
+        check(len(gaps) == n_steps and max(gaps) <= TP_BF16_LOSS_RTOL,
+              f"the split bf16 {arch} losses leave the band: {gaps}")
+        for r, run in enumerate(runs):
+            print(f"[tp] {arch} rank {r}: step p50 {run['step_p50_ms']:.1f} "
+                  f"ms, train peak "
+                  f"{run['train_peak_gb']:.3f} GB; prefill "
+                  f"{run['prefill_ms']:.3f} ms, decode p50 "
+                  f"{run['decode_p50_ms']:.3f} ms, serve peak "
+                  f"{run['serve_peak_gb']:.3f} GB; card: {smi} (two "
+                  f"processes share its SMs: no speed figure for the split)")
+            for n in counts:
+                counts[n] += run["counts"][n]
     print(f"[tp] phase done in {time.perf_counter() - t_start:.1f} s; "
           f"launches over both ranks {counts}")
     return counts
@@ -3494,14 +3596,27 @@ def phase_tp(device, unsplit_losses: list[float]) -> dict[str, int]:
 # phase 18's dry-run runs, one process each: (name, arch, shape, extra CLI
 # flags, meshes); qwen2-vl-2b x train_4k on the 2x16x16 mesh shows the
 # batch split over pod x data, llama3-405b x decode_32k the q heads split
-# over kv heads that do not
+# over kv heads that do not, zamba2-7b x decode_32k the Mamba2 split
 DRYRUN_CELLS = (("rwkv6", "rwkv6-1.6b", "decode_32k", ["--both-meshes"],
                  {"16x16": 256, "2x16x16": 512}),
                 ("qwen2-vl", "qwen2-vl-2b", "train_4k", [], {"16x16": 256}),
                 ("qwen2-vl-pod", "qwen2-vl-2b", "train_4k", ["--multi-pod"],
                  {"2x16x16": 512}),
-                ("llama3", "llama3-405b", "decode_32k", [], {"16x16": 256}))
+                ("llama3", "llama3-405b", "decode_32k", [], {"16x16": 256}),
+                ("zamba2", "zamba2-7b", "decode_32k", [], {"16x16": 256}))
 LAUNCH_TIMEOUT_S = 600
+# the scan families' split decode rows at 16x16: (FLOPs a rank at most,
+# peak bytes at most, the split plan's line); whole on every rank they
+# read 1.951e11 FLOPs and 66.29 GiB (zamba2-7b), 2.319e10 (rwkv6-1.6b)
+SPLIT_DECODE_GATES = {
+    "zamba2-7b": (2.44e10, 12 * 2 ** 30,
+                  "mamba2 split, attention split, mlp split, vocab split"),
+    "rwkv6-1.6b": (2.9e9, None,
+                   "time mix split, channel mix split, vocab split")}
+# zamba2-7b x decode_32k's argument bytes at 16x16: the reference's own dry
+# run of the cell (``repro.launch.dryrun.run_cell`` on the CPU) reads the
+# same, and they come from the specs, which the split does not move
+ZAMBA2_DECODE_ARGUMENT = 3_182_791_172
 
 
 def smi_line() -> str:
@@ -3584,6 +3699,21 @@ def phase_launch_tooling(out_dir: str) -> None:
           and one["bytes_per_device"]["peak"] <= 95e9
           and abs(half - 0.5) <= 0.01,
           f"the split train row is outside its gates: {one}, ratio {half}")
+    for arch, (flops, peak, plan) in SPLIT_DECODE_GATES.items():
+        row = by_cell[(arch, "decode_32k", "16x16")]
+        name = next(c[0] for c in DRYRUN_CELLS if c[1] == arch)
+        print(f"[launch] {arch} x decode_32k split: "
+              f"{row['flops_total']:.4e} FLOPs (gate {flops:.3g}), peak "
+              f"{row['bytes_per_device']['peak'] / 2 ** 30:.2f} GiB, argument "
+              f"{row['bytes_per_device']['argument']:.0f} B a rank at 16x16")
+        check(row["flops_total"] <= flops
+              and (peak is None or row["bytes_per_device"]["peak"] <= peak)
+              and plan in outs[name],
+              f"the split {arch} decode row is outside its gates or does "
+              f"not say '{plan}': {row}")
+    zamba2 = by_cell[("zamba2-7b", "decode_32k", "16x16")]
+    check(zamba2["bytes_per_device"]["argument"] == ZAMBA2_DECODE_ARGUMENT,
+          f"zamba2-7b x decode_32k's argument bytes moved: {zamba2}")
     check(procs["cost"].returncode == 0, f"the cost run exited "
           f"{procs['cost'].returncode}:\n{outs['cost'][-3000:]}")
     with open(f"{out_dir}/cost.json") as f:
@@ -3661,9 +3791,9 @@ def main() -> int:
     paths += [phase_serve(device, arch) for arch in SERVE_ARCHS]
     paths.append(phase_checkpoint(device))
     paths.append(phase_serve(device, MLA_ARCH))
-    train = phase_train(device)
+    train, scan_losses = phase_train(device)
     dist_counts, unsplit_losses = phase_dist(device)
-    tp_counts = phase_tp(device, unsplit_losses)
+    tp_counts = phase_tp(device, unsplit_losses, scan_losses)
     paths += [train, dist_counts, tp_counts]
     with tempfile.TemporaryDirectory() as out_dir:
         phase_launch_tooling(out_dir)

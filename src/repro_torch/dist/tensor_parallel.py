@@ -1,24 +1,42 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the dense,
-vision-language and audio families: the port's counterpart of what GSPMD
-does to the reference's jitted step when ``default_rules`` shard a weight's
-``heads``, ``kv_heads``, ``mlp`` or ``vocab`` dim over ``model``.
+"""Tensor parallelism over the mesh's ``model`` axis: the port's
+counterpart of what GSPMD does to the reference's jitted step when
+``default_rules`` shard a weight's ``heads``, ``kv_heads``, ``mlp``,
+``vocab``, ``inner``, ``heads_x_dim`` or ``embed_out`` dim over ``model``.
 
 What splits is read from the rules, with no knob of its own: for each
 weight, ``spec_for(whole shape, logical axes, default_rules(multi_pod),
 mesh)`` decides, with the reference's degradation ladder.  A region runs
 split over ``model`` exactly where its weights' specs shard a dim over
-``model``, and whole on every model rank otherwise (``split_plan``):
+``model`` (and, for the two scan families, where its heads divide too),
+and whole on every model rank otherwise (``split_plan``):
 
-- attention: the q heads (``wq``, ``bq``, ``wo``) and, where they divide
-  too, the kv heads (``wk``, ``wv``, ``bk``, ``bv``), column-parallel in
-  Megatron's form, with a row-parallel ``wo`` whose partial sums are
-  all-reduced.  Where the q heads split and the kv heads do not
-  (llama3-405b at 16: 8 q heads a rank over 8 kv heads), ``wk`` and
-  ``wv`` stay whole: a training forward computes k and v for its own q
-  heads' kv groups only, and the prefill and decode compute all of them
+- attention (the dense, vision-language and audio families' layers and
+  the hybrid's shared block): the q heads (``wq``, ``bq``, ``wo``) and,
+  where they divide too, the kv heads (``wk``, ``wv``, ``bk``, ``bv``),
+  column-parallel in Megatron's form, with a row-parallel ``wo`` whose
+  partial sums are all-reduced.  Where the q heads split and the kv heads
+  do not (llama3-405b at 16: 8 q heads a rank over 8 kv heads), ``wk``
+  and ``wv`` stay whole: a training forward computes k and v for its own
+  q heads' kv groups only, and the prefill and decode compute all of them
   for the cache, which stays whole, as the reference's spec keeps it;
 - the SwiGLU MLP: ``w_gate`` and ``w_up`` column-parallel, ``w_down``
   row-parallel;
+- Mamba2 (``inner``): the fused ``w_in`` [z | x | B | C | dt] cut by an
+  index map (``params.cut_ranges`` over ``Mamba2``'s segments): each rank
+  keeps the z and x columns and the dt column of its H / n heads and its
+  2N / n of the B and C columns, and ``conv_w``, ``conv_b`` and the conv
+  state its x and B/C channels; after the conv each rank's B/C channels
+  are gathered (``gather_shared``), ``ssd_scan`` runs on the rank's
+  heads, the gated norm sums its squares over ``model`` (``sum_partial``)
+  and ``w_out`` is row-parallel.  Where the heads or the B/C columns do
+  not divide, Mamba2 runs whole;
+- RWKV6's time mix (``heads_x_dim``, ``heads``): ``w_r``, ``w_k``,
+  ``w_v``, ``w_g`` column-parallel and ``u`` by heads, the decay's LoRA
+  output and ``w_base`` read at the rank's columns, the WKV scan on the
+  rank's heads, ``ln_x``'s norm over the whole width (``sum_partial``),
+  ``w_o`` row-parallel; its channel mix (``mlp``, ``embed_out``):
+  ``w_ck`` column-parallel, ``w_cv`` row-parallel, ``w_cr`` by columns,
+  the rank's columns of the output gathered (``gather_from``);
 - the vocabulary: the embedding (and the codebook embeddings) cut by rows,
   each rank looking up its own rows, zeros for tokens outside them, summed
   over ``model``; the head cut by columns (a tied head follows the
@@ -28,21 +46,25 @@ split over ``model`` exactly where its weights' specs shard a dim over
   position's logits, (B, 1, V), as the reference's batch-only
   ``out_shardings`` give them.
 
-Two conjugate ``autograd.Function``s carry the gradients: ``copy_to``
+Conjugate ``autograd.Function``s carry the gradients: ``copy_to``
 (identity forward, all-reduce backward) where a replicated activation
-enters a split region, and ``reduce_from`` (all-reduce forward, identity
-backward) where its partial sums leave it.  Both run over the ``model``
-group only.  Every rank of a model group holds the same replicated
-activations and parameters (the norms, a whole attention), whose
-gradients are therefore equal on every rank; the split parameters' are
-each rank's own.
+enters a split region, or a replicated weight is read in part, and
+``reduce_from`` (all-reduce forward, identity backward) where its partial
+sums leave it; ``sum_partial`` (all-reduce both ways) for a partial sum
+that every rank reads whole, ``gather_shared`` (all-gather forward,
+reduce-scatter backward) for blocks every rank reads whole, and
+``gather_from`` (all-gather forward, the rank's block of the gradient
+backward) for a replicated output assembled from blocks.  All run over
+the ``model`` group only.  Every rank of a model group holds the same
+replicated activations and parameters (the norms, a whole attention),
+whose gradients are therefore equal on every rank; the split parameters'
+are each rank's own.
 
 ``shard_model`` (``Model.shard``) cuts each split parameter to this rank's
 block (``params.cut_params``) after the model was made whole, so the
 seeded init and ``load_reference_params`` give every rank the unsplit
-model's values in its block, bit for bit.  The other families (Mamba2,
-RWKV6, the hybrid, MoE, MLA) stay whole here: their ``inner``,
-``heads_x_dim``, ``experts`` and MLA head splits are later slices.
+model's values in its block, bit for bit.  The MoE and MLA families stay
+whole here: their ``experts`` and MLA head splits are later slices.
 
 Collectives go through ``all_reduce`` and ``all_gather`` here, on any
 backend: NCCL across cards, or gloo, which takes CUDA tensors itself
@@ -58,7 +80,7 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import (ShardingReport, axis_sizes,
                                        default_rules, spec_for)
-from repro_torch.models.params import cut_params, whole_shape
+from repro_torch.models.params import assemble, cut_params, whole_shape
 
 MODEL = "model"
 
@@ -81,12 +103,24 @@ def all_reduce(t: torch.Tensor, mg: ModelGroup, op=dist.ReduceOp.SUM
     return t
 
 
-def all_gather(t: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
-    """Every model rank's ``t`` concatenated along ``dim`` in rank order."""
+def _gather_parts(t: torch.Tensor, mg: ModelGroup) -> list[torch.Tensor]:
+    """Every model rank's ``t``, in rank order."""
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mg.size)]
     dist.all_gather(parts, t, group=mg.group)
-    return torch.cat(parts, dim=dim)
+    return parts
+
+
+def all_gather(t: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """Every model rank's ``t`` concatenated along ``dim`` in rank order."""
+    return torch.cat(_gather_parts(t, mg), dim=dim)
+
+
+def _own_block(t: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """This rank's block of ``mg.size`` equal blocks of ``t`` along
+    ``dim``."""
+    size = t.shape[dim] // mg.size
+    return t.narrow(dim, mg.rank * size, size)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -114,6 +148,48 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumPartial(torch.autograd.Function):
+    """All-reduce forward and backward over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return all_reduce(x.contiguous().clone(), mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mg), None
+
+
+class _GatherShared(torch.autograd.Function):
+    """All-gather forward along ``dim``; backward the gradient summed over
+    the model group, this rank's block kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mg, dim):
+        ctx.mg, ctx.dim = mg, dim
+        return all_gather(x, mg, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.mg)
+        return _own_block(g, ctx.mg, ctx.dim).contiguous(), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather forward along ``dim``; backward this rank's block of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mg, dim):
+        ctx.mg, ctx.dim = mg, dim
+        return all_gather(x, mg, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.mg, ctx.dim).contiguous(), None, None
+
+
 def copy_to(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     """A replicated activation (or a replicated weight read in part) as it
     enters a split region: equal values, its gradient summed over the
@@ -126,12 +202,48 @@ def reduce_from(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mg)
 
 
+def sum_partial(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """A rank's partial sum that every rank reads whole (a norm's sum of
+    squares over the rank's columns), summed over the model group; its
+    gradient, each rank's part of it, summed too."""
+    return _SumPartial.apply(x, mg)
+
+
+def gather_shared(x: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """Each rank's block of an activation that every rank reads whole
+    (Mamba2's B and C channels), concatenated along ``dim``; the gradient
+    of a block is the sum over the ranks' gradients of the whole, at the
+    block."""
+    return _GatherShared.apply(x, mg, dim)
+
+
+def gather_from(x: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """Each rank's block of a replicated output (RWKV6's channel-mix
+    output), concatenated along ``dim``; the gradient of the whole, equal
+    on every rank, gives each block its part."""
+    return _GatherFrom.apply(x, mg, dim)
+
+
+def split_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                   mg: ModelGroup) -> torch.Tensor:
+    """``layers.rms_norm`` over the whole width of an activation whose last
+    dim is split over the model group: ``x`` and ``weight`` are this
+    rank's columns; the sum of squares is summed over the group
+    (``sum_partial``) and divided by the whole width."""
+    dt = x.dtype
+    x = x.float()
+    ss = sum_partial((x * x).sum(-1, keepdim=True), mg)
+    x = x * torch.rsqrt(ss / (x.shape[-1] * mg.size) + eps)
+    return (x * weight.float()).to(dt)
+
+
 # ------------------------------- regions ------------------------------ #
 @dataclasses.dataclass(eq=False)
-class MlpSplit:
-    """A SwiGLU MLP whose ``mlp`` dim splits over ``model`` (``FFN.tp``):
-    a replicated activation enters it (``copy_to``), its partial sums
-    leave it (``reduce_from``)."""
+class RegionSplit:
+    """A region split over ``model``: a replicated activation enters it
+    (``copy_to``), its partial sums leave it (``reduce_from``), and a
+    replicated weight or activation is read at this rank's block
+    (``part``)."""
     mg: ModelGroup
 
     def enter(self, x):
@@ -139,6 +251,21 @@ class MlpSplit:
 
     def exit(self, y):
         return reduce_from(y, self.mg)
+
+    def part(self, t, dim: int):
+        """This rank's block of the replicated ``t`` along ``dim``, its
+        gradient summed over the model group."""
+        return _own_block(copy_to(t, self.mg), self.mg, dim)
+
+    def rms_norm(self, x, weight, eps: float):
+        """``layers.rms_norm`` over the whole width of which ``x`` and
+        ``weight`` are this rank's columns (``split_rms_norm``)."""
+        return split_rms_norm(x, weight, eps, self.mg)
+
+
+@dataclasses.dataclass(eq=False)
+class MlpSplit(RegionSplit):
+    """A SwiGLU MLP whose ``mlp`` dim splits over ``model`` (``FFN.tp``)."""
 
 
 @dataclasses.dataclass(eq=False)
@@ -170,6 +297,31 @@ class AttentionSplit(MlpSplit):
             return t.narrow(dim, lo, n)
         return t.index_select(dim, torch.tensor(self.kv_index,
                                                 device=t.device))
+
+
+@dataclasses.dataclass(eq=False)
+class MambaSplit(RegionSplit):
+    """A Mamba2 block whose heads split over ``model`` (``Mamba2.tp``):
+    its parameters cut by ``Mamba2``'s segments, B and C gathered after
+    the conv (``gather_bc``), the (H,) leaves read at the rank's heads
+    (``part``), the gated norm over the whole ``d_inner``."""
+
+    def gather_bc(self, bc):
+        """The B and C channels (..., 2N) from each rank's (..., 2N / n)."""
+        return gather_shared(bc, self.mg, -1)
+
+
+@dataclasses.dataclass(eq=False)
+class RwkvSplit(RegionSplit):
+    """An RWKV6 layer split over ``model`` (``Rwkv6.tp``): its time mix
+    by heads where ``time``, its channel mix by ``mlp`` and ``embed_out``
+    columns where ``channel``."""
+    time: bool = True
+    channel: bool = True
+
+    def gather(self, y):
+        """A replicated output (..., d) from each rank's (..., d / n)."""
+        return gather_from(y, self.mg, -1)
 
 
 def local_lookup(table: torch.Tensor, ids: torch.Tensor, lo: int
@@ -256,29 +408,48 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # -------------------------------- plan -------------------------------- #
-# each region's weights, by leaf name: the first one found decides (the
-# rest share its dim), and a region whose leaf the model lacks stays whole
-REGIONS = {"heads": "attn.wq", "kv_heads": "attn.wk", "mlp": "ffn.w_gate",
-           "vocab": "embedding"}
+# each region's weights, by leaf name: the first leaf found decides (the
+# rest share its dim), and a region whose leaves the model lacks stays
+# whole.  ``heads`` are the attention's q heads, or RWKV6's heads (``u``)
+REGIONS = {"heads": ("attn.wq", "time.u"), "kv_heads": ("attn.wk",),
+           "mlp": ("ffn.w_gate", "time.w_ck"), "vocab": ("embedding",),
+           "inner": ("mixer.w_in",), "heads_x_dim": ("time.w_r",),
+           "embed_out": ("time.w_cr",)}
+# what runs split, by family: (name, the regions that must all split)
+RUNS = {"dense": (("attention", ("heads",)), ("mlp", ("mlp",)),
+                  ("vocab", ("vocab",))),
+        "hybrid": (("mamba2", ("inner",)), ("attention", ("heads",)),
+                   ("mlp", ("mlp",)), ("vocab", ("vocab",))),
+        "rwkv6": (("time mix", ("heads_x_dim", "heads")),
+                  ("channel mix", ("mlp", "embed_out")),
+                  ("vocab", ("vocab",)))}
 
 
 @dataclasses.dataclass
 class SplitPlan:
     """What runs split over the ``model`` axis of ``n`` ranks: each
-    region's weight dim (``dims``: heads, kv_heads, mlp, vocab, whole) and
-    whether ``spec_for`` shards it (``split``); ``family`` says why a model
-    stays whole.  ``specs``: each parameter's spec on its whole shape;
-    ``report``: the ShardingReport of those specs."""
+    region's weight dim (``dims``) and whether it runs split (``split``:
+    ``spec_for`` shards it, and ``why`` holds no reason to keep it whole);
+    ``family`` says why a model stays whole.  ``specs``: each parameter's
+    spec on its whole shape; ``report``: the ShardingReport of those
+    specs."""
     n: int
     split: dict[str, bool]
     dims: dict[str, int]
     family: str | None
     specs: dict
     report: ShardingReport
+    kind: str = "dense"
+    why: dict[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def any(self) -> bool:
         return self.family is None and any(self.split.values())
+
+    def runs(self) -> dict[str, bool]:
+        """{what runs (attention, mlp, mamba2, time mix, ...): split}."""
+        return {name: all(self.split.get(r, False) for r in regions)
+                for name, regions in RUNS[self.kind]}
 
     def describe(self) -> str:
         if self.family is not None:
@@ -291,13 +462,11 @@ class SplitPlan:
             d = self.dims[region]
             parts.append(f"{region} {d} " + (
                 f"split, {d // self.n} a rank" if self.split[region]
+                else f"whole ({self.why[region]})" if region in self.why
                 else f"whole ({d} % {self.n} != 0)"))
-        runs = {"attention": self.split.get("heads", False),
-                "mlp": self.split.get("mlp", False),
-                "vocab": self.split.get("vocab", False)}
         return (f"model axis {self.n}: " + "; ".join(parts) + " -> "
                 + ", ".join(f"{k} {'split' if v else 'whole'}"
-                            for k, v in runs.items()))
+                            for k, v in self.runs().items()))
 
 
 def _model_dim(spec) -> int | None:
@@ -311,10 +480,6 @@ def _model_dim(spec) -> int | None:
 def _in_scope(model) -> str | None:
     """None for a model whose split this module runs, else its family."""
     cfg = model.cfg
-    if cfg.rwkv:
-        return "rwkv6"
-    if cfg.family in ("ssm", "hybrid"):
-        return cfg.family
     if cfg.n_experts:
         return "moe"
     if cfg.attn_type == "mla":
@@ -322,10 +487,39 @@ def _in_scope(model) -> str | None:
     return None
 
 
+def _kind(cfg) -> str:
+    if cfg.rwkv:
+        return "rwkv6"
+    return "hybrid" if cfg.family in ("ssm", "hybrid") else "dense"
+
+
+def _whole_for_heads(cfg, kind: str, n: int, split: dict) -> dict[str, str]:
+    """The regions that ``spec_for`` shards but whose heads do not divide
+    over ``n`` ranks, with the reason: Mamba2 needs its heads and its B/C
+    columns to, RWKV6's time mix its heads, and its channel mix both its
+    ``mlp`` and ``embed_out`` dims."""
+    why = {}
+    if kind == "hybrid" and split.get("inner"):
+        H, bc = cfg.ssm_heads, 2 * cfg.ssm_state
+        if H % n or bc % n:
+            why["inner"] = (f"{H} ssm heads and {bc} B/C columns do not "
+                            f"both split into {n}")
+    if kind == "rwkv6":
+        if split.get("heads_x_dim") and not split.get("heads"):
+            why["heads_x_dim"] = (f"{cfg.d_model // cfg.head_dim} heads do "
+                                  f"not split into {n}")
+        if split.get("mlp") != split.get("embed_out"):
+            for r in ("mlp", "embed_out"):
+                if split.get(r):
+                    why[r] = "the channel mix splits mlp and embed_out or neither"
+    return why
+
+
 def split_plan(model, mesh) -> SplitPlan:
     """Which regions of ``model`` split over ``mesh``'s ``model`` axis, by
     ``spec_for`` of every parameter's whole shape under
-    ``default_rules("pod" in the mesh)``."""
+    ``default_rules("pod" in the mesh)``, and the heads' divisibility for
+    the scan families (``_whole_for_heads``)."""
     sizes = axis_sizes(mesh)
     n = sizes.get(MODEL, 1)
     rules = default_rules("pod" in sizes)
@@ -334,24 +528,30 @@ def split_plan(model, mesh) -> SplitPlan:
                             report, name)
              for name, p in model.named_parameters()}
     split, dims = {}, {}
-    for region, leaf in REGIONS.items():
-        name = next((k for k in specs if k == leaf or k.endswith("." + leaf)),
-                    None)
+    for region, leaves in REGIONS.items():
+        name = next((k for leaf in leaves for k in specs
+                     if k == leaf or k.endswith("." + leaf)), None)
         if name is None:
             continue
         p = model.get_parameter(name)
         axis = p.logical_axes.index(region)
         dims[region] = whole_shape(p)[axis]
         split[region] = _model_dim(specs[name]) == axis
-    return SplitPlan(n, split, dims, _in_scope(model), specs, report)
+    kind = _kind(model.cfg)
+    why = _whole_for_heads(model.cfg, kind, n, split)
+    for region in why:
+        split[region] = False
+    return SplitPlan(n, split, dims, _in_scope(model), specs, report, kind,
+                     why)
 
 
 def shard_model(model, mesh):
     """Cut ``model`` (made whole, filled or not) to this rank's blocks of
-    every weight its ``split_plan`` splits, and attach the regions that run
-    split (``GQA.tp``, ``FFN.tp``, ``Model.tp``); returns ``model``.  A
-    model already cut, or a plan that splits nothing (one model rank, or a
-    family this module leaves whole), is left as it is."""
+    every weight of a region its ``split_plan`` splits, and attach the
+    regions that run split (``GQA.tp``, ``FFN.tp``, ``Mamba2.tp``,
+    ``Rwkv6.tp``, ``Model.tp``); returns ``model``.  A model already cut,
+    or a plan that splits nothing (one model rank, or a family this
+    module leaves whole), is left as it is."""
     if getattr(model, "split_plan", None) is not None and model.split_plan.any:
         raise ValueError("the model is split already")
     plan = split_plan(model, mesh)
@@ -363,18 +563,27 @@ def shard_model(model, mesh):
     cuts = {}
     for name, spec in plan.specs.items():
         dim = _model_dim(spec)
-        if dim is not None:
-            cuts[name] = (dim, mg.rank, mg.size)
+        p = model.get_parameter(name)
+        if dim is not None and plan.split.get(p.logical_axes[dim], False):
+            cuts[name] = (dim, mg.rank, mg.size,
+                          getattr(p, "segments", None))
     cut_params(model, cuts)
     cfg = model.cfg
-    for stack in model._dense_stacks():
-        for layer in getattr(model, stack):
-            if plan.split["heads"]:
-                layer.attn.tp = AttentionSplit(mg, None if plan.split[
-                    "kv_heads"] else _kv_index(cfg, mg))
-            if plan.split["mlp"]:
-                layer.ffn.tp = MlpSplit(mg)
-    if plan.split["vocab"]:
+    runs = plan.runs()
+    for layer in model.attention_layers():
+        if runs["attention"]:
+            layer.attn.tp = AttentionSplit(mg, None if plan.split[
+                "kv_heads"] else _kv_index(cfg, mg))
+        if runs["mlp"]:
+            layer.ffn.tp = MlpSplit(mg)
+    if runs.get("mamba2"):
+        for layer in model.layers:
+            layer.mixer.tp = MambaSplit(mg)
+    if plan.kind == "rwkv6" and (runs["time mix"] or runs["channel mix"]):
+        for layer in model.layers:
+            layer.time.tp = RwkvSplit(mg, runs["time mix"],
+                                      runs["channel mix"])
+    if runs["vocab"]:
         n_local = cfg.vocab_size // mg.size
         model.tp = VocabSplit(mg, mg.rank * n_local, n_local)
     return model
@@ -395,10 +604,11 @@ def _kv_index(cfg, mg: ModelGroup) -> tuple[int, ...]:
 
 def gather_cut(t: torch.Tensor, p, mg: ModelGroup) -> torch.Tensor:
     """The whole value of a tensor cut as parameter ``p`` is (``p`` itself,
-    its gradient, its optimizer state), gathered over the model group; as
-    it is where ``p`` is not cut."""
+    its gradient, its optimizer state), gathered over the model group and
+    put back in place (``params.assemble``); as it is where ``p`` is not
+    cut."""
     cut = getattr(p, "cut", None)
-    return t if cut is None else all_gather(t, mg, cut[0])
+    return t if cut is None else assemble(_gather_parts(t, mg), cut)
 
 
 def model_group(model) -> ModelGroup | None:
@@ -411,7 +621,9 @@ def model_group(model) -> ModelGroup | None:
     return None
 
 
-__all__ = ["AttentionSplit", "MlpSplit", "ModelGroup", "SplitPlan",
-           "VocabSplit", "all_gather", "all_reduce", "copy_to", "gather_cut",
-           "local_lookup", "model_group", "reduce_from", "shard_model",
-           "split_plan", "vocab_cross_entropy"]
+__all__ = ["AttentionSplit", "MambaSplit", "MlpSplit", "ModelGroup",
+           "RegionSplit", "RwkvSplit", "SplitPlan", "VocabSplit",
+           "all_gather", "all_reduce", "copy_to", "gather_cut",
+           "gather_from", "gather_shared", "local_lookup", "model_group",
+           "reduce_from", "shard_model", "split_plan", "split_rms_norm",
+           "sum_partial", "vocab_cross_entropy"]

@@ -30,15 +30,15 @@ A row's numbers (the reference's keys):
   ``degraded_shardings`` is the count of dims those shardings replicate.
 - ``flops_total``: ``FlopCounterMode`` over the step the port runs on one
   rank: the model split over ``model`` where the rules split it
-  (``Model.shard``, ``dist.tensor_parallel``: the dense, vision-language
-  and audio families' heads, MLP and vocabulary; the other families
-  whole), on the rank's block of the batch over ``pod`` x ``data``
-  (``train.loop.make_train_step``'s sharded step for ``train``;
-  ``prefill``/``decode`` on the rank's block, the cache split in kv heads
-  where they split).  The reference's number is XLA's SPMD partition of
-  one program over the mesh, which also splits ``embed`` over ``data``
-  and the families this port still runs whole; the two are not expected
-  to agree.  ``FlopCounterMode`` counts the products (matmuls,
+  (``Model.shard``, ``dist.tensor_parallel``: the dense, vision-language,
+  audio, hybrid and RWKV6 families' heads, MLP, Mamba2 and RWKV6 blocks
+  and vocabulary; MoE and MLA whole), on the rank's block of the batch
+  over ``pod`` x ``data`` (``train.loop.make_train_step``'s sharded step
+  for ``train``; ``prefill``/``decode`` on the rank's block, the cache
+  split in kv, ssm or WKV heads where they split).  The reference's
+  number is XLA's SPMD partition of one program over the mesh, which also
+  splits ``embed`` over ``data`` and the families this port still runs
+  whole; the two are not expected to agree.  ``FlopCounterMode`` counts the products (matmuls,
   attention), not the elementwise work XLA also counts.
 - ``bytes_accessed``: the bytes every op of the step reads and writes (its
   tensor arguments and outputs; views move none): an unfused count.
@@ -266,21 +266,13 @@ def _shard_bytes(tree: dict, shardings: dict) -> int:
                for path, sh in shardings.items())
 
 
-def _global_cache(model, cache: dict, batch: int) -> dict:
-    """Flat ``meta`` stand-ins of the whole cache from a rank's block of
-    it: each leaf at ``batch`` rows on axis 1, behind its stack's layers
-    axis (``len``, (n, 1), as it is), and all the config's kv heads where
-    the rank keeps a share of them."""
-    axes = model.cache_axes()
-    out = {}
-    for path, t in paths_from_tree(cache).items():
-        shp = list(t.shape)
-        if len(shp) > 2:
-            shp[1] = batch
-        if "kv_heads" in axes[path]:
-            shp[axes[path].index("kv_heads")] = model.cfg.n_kv_heads
-        out[path] = torch.empty(shp, dtype=t.dtype, device="meta")
-    return out
+def _global_cache(model, batch: int, max_len: int) -> dict:
+    """Flat ``meta`` stand-ins of the whole cache of ``batch`` rows: the
+    unsplit model's sizes (``Model.init_cache(whole=True)``) where the
+    rank keeps a share of the kv heads, the ssm heads and conv channels or
+    the WKV heads."""
+    return paths_from_tree(model.init_cache(batch, max_len, whole=True,
+                                            device="meta"))
 
 
 def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
@@ -330,10 +322,11 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
                 return step_fn(opt, specs)
         else:
             # the rank's block of the batch, and its cache, a share of the
-            # kv heads where they split over ``model``
+            # heads where they split over ``model``
             rows = shape.global_batch // _span(b_shard["tokens"])
             cache = model.init_cache(rows, shape.seq_len)
-            whole_cache = _global_cache(model, cache, shape.global_batch)
+            whole_cache = _global_cache(model, shape.global_batch,
+                                        shape.seq_len)
             argument += _shard_bytes(whole_cache, tree_shardings(
                 whole_cache, model.cache_axes(), mesh, rules, report))
             block = {k: v[:rows] for k, v in specs.items()}

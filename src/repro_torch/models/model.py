@@ -37,7 +37,8 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import InitCtx, init_params, param_axes
+from repro_torch.models.params import (InitCtx, init_params, param_axes,
+                                       whole_shape)
 
 
 class MambaLayer(nn.Module):
@@ -170,14 +171,14 @@ class Model(nn.Module):
         return self
 
     def shard(self, mesh) -> "Model":
-        """Split the dense, vision-language and audio families over
-        ``mesh``'s ``model`` axis where the reference's rules shard their
-        weights (``dist.tensor_parallel.shard_model``): each rank keeps its
-        block of every split weight, of a model filled whole (``init``
-        after ``shard`` draws whole tensors too, and
-        ``load_reference_params`` cuts the reference's).  Other families,
-        and a mesh without a ``model`` axis of more than one rank, are left
-        whole.  Returns the model."""
+        """Split the dense, vision-language, audio, hybrid and RWKV6
+        families over ``mesh``'s ``model`` axis where the reference's rules
+        shard their weights (``dist.tensor_parallel.shard_model``): each
+        rank keeps its block of every split weight, of a model filled
+        whole (``init`` after ``shard`` draws whole tensors too, and
+        ``load_reference_params`` cuts the reference's).  The MoE and MLA
+        families, and a mesh without a ``model`` axis of more than one
+        rank, are left whole.  Returns the model."""
         from repro_torch.dist.tensor_parallel import shard_model
         return shard_model(self, mesh)
 
@@ -256,6 +257,14 @@ class Model(nn.Module):
         names) in order: ``dense_layers`` first where there is one."""
         return (["dense_layers"] if self._first_dense else []) + ["layers"]
 
+    def attention_layers(self) -> list[DenseLayer]:
+        """The layers that hold an attention and an MLP: the dense and MoE
+        stacks' layers, or the hybrid's shared block."""
+        if self._dense:
+            return [layer for name in self._dense_stacks()
+                    for layer in getattr(self, name)]
+        return [self.shared_attn] if self.cfg.hybrid_attn_every else []
+
     def _shared_due(self, i: int) -> bool:
         k = self.cfg.hybrid_attn_every
         return bool(k) and (i + 1) % k == 0
@@ -320,7 +329,8 @@ class Model(nn.Module):
         return self.logits(x), aux
 
     # ------------------------------ cache ------------------------------ #
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def init_cache(self, batch: int, max_len: int, *, whole: bool = False,
+                   device=None) -> dict:
         """Per-layer decoding state, stacked along a leading layers axis:
         ``layers`` {ssm (n, B, H, P, N) f32, conv (n, B, K-1, conv_dim)}
         and, for the hybrid, ``shared_attn`` {k, v (n_attn, B, L, Hkv, hd),
@@ -331,29 +341,43 @@ class Model(nn.Module):
         ``max_len`` or, with a sliding window, the smaller of it and the
         window (a ring); with MLA {ckv (n, B, L, kv_lora), krope (n, B, L,
         dr), len}; with a ``first_k_dense`` stack, ``dense_layers`` the same
-        for its layers and ``layers`` for the MoE layers."""
+        for its layers and ``layers`` for the MoE layers.
+
+        Split over ``model``, the rank keeps its share of the heads (kv
+        heads, ssm heads and the conv channels, WKV heads) that its
+        weights keep; with ``whole``, the unsplit model's sizes.
+        ``device``: default the model's."""
         cfg = self.cfg
+        dev = self.device if device is None else device
+
+        def size(p, dim):      # the rank's share of a dim, or the whole
+            return whole_shape(p)[dim] if whole else p.shape[dim]
         if cfg.rwkv:
             return {"layers": rwkv_mod.rwkv6_state_init(
-                cfg, batch, device=self.device, n=cfg.n_layers)}
+                cfg, batch, device=dev, n=cfg.n_layers,
+                heads=size(self.layers[0].time.u, 0))}
         if self._dense:
             if cfg.attn_type == "mla":
                 return {name: attn.mla_cache_init(
-                            cfg, batch, max_len, device=self.device,
+                            cfg, batch, max_len, device=dev,
                             n=len(getattr(self, name)))
                         for name in self._dense_stacks()}
             # the kv heads a rank keeps: wk's, a share where they split
             return {name: attn.gqa_cache_init(
-                        cfg, batch, max_len, device=self.device,
+                        cfg, batch, max_len, device=dev,
                         n=len(getattr(self, name)),
-                        n_kv_heads=getattr(self, name)[0].attn.wk.shape[1])
+                        n_kv_heads=size(getattr(self, name)[0].attn.wk, 1))
                     for name in self._dense_stacks()}
+        mixer = self.layers[0].mixer
         cache = {"layers": ssm_mod.mamba2_state_init(
-            cfg, batch, device=self.device, n=cfg.n_layers)}
+            cfg, batch, device=dev, n=cfg.n_layers,
+            heads=size(mixer.norm_w, 0) // cfg.ssm_head_dim,
+            conv_dim=size(mixer.conv_b, 0))}
         if cfg.hybrid_attn_every:
             cache["shared_attn"] = attn.gqa_cache_init(
-                cfg, batch, max_len, device=self.device,
-                n=cfg.n_layers // cfg.hybrid_attn_every)
+                cfg, batch, max_len, device=dev,
+                n=cfg.n_layers // cfg.hybrid_attn_every,
+                n_kv_heads=size(self.shared_attn.attn.wk, 1))
         return cache
 
     def cache_axes(self) -> dict[str, tuple]:

@@ -56,8 +56,11 @@ class InitCtx:
     stack: int = 0                   # > 0: a layer of a stack of this many
 
     def param(self, name: str, shape: tuple[int, ...], logical_axes: tuple,
-              *, scale: float | None = None, init: str = "normal"
-              ) -> nn.Parameter:
+              *, scale: float | None = None, init: str = "normal",
+              segments: tuple[int, ...] | None = None) -> nn.Parameter:
+        """``segments``: the widths of the parts that its ``"inner"`` dim
+        concatenates (Mamba2's fused [z | x | B | C | dt]); a cut over
+        ranks keeps its block of each part (``cut_ranges``)."""
         if len(shape) != len(logical_axes):
             raise ValueError(f"{name}: shape {tuple(shape)} has "
                              f"{len(shape)} axes, logical axes "
@@ -72,6 +75,8 @@ class InitCtx:
                                      device=self.device), requires_grad=False)
         p.init_rule = (init, scale)
         p.logical_axes = tuple(logical_axes)
+        if segments is not None:
+            p.segments = tuple(segments)
         return p
 
 
@@ -81,39 +86,84 @@ def whole_shape(p) -> tuple[int, ...]:
     return getattr(p, "whole_shape", tuple(p.shape))
 
 
+def cut_ranges(cut, size: int) -> list[tuple[int, int]]:
+    """The [start, stop) ranges, in order, that a cut keeps of a dim of
+    ``size``: ``cut`` is (dim, index, n) or (dim, index, n, segments).
+    Block ``index`` of ``n`` equal blocks; with ``segments`` (widths that
+    sum to ``size``) block ``index`` of each segment, concatenated."""
+    _, index, n = cut[:3]
+    segments = cut[3] if len(cut) > 3 and cut[3] else (size,)
+    if sum(segments) != size or any(s % n for s in segments):
+        raise ValueError(f"segments {segments} of a dim of {size} do not "
+                         f"each split into {n} blocks")
+    out, lo = [], 0
+    for s in segments:
+        out.append((lo + index * (s // n), lo + (index + 1) * (s // n)))
+        lo += s
+    return out
+
+
+def _take(whole, dim: int, ranges: list[tuple[int, int]]):
+    """The ``ranges`` of ``whole`` (a tensor or array) along ``dim``,
+    concatenated: a view where there is one range."""
+    def one(lo, hi):
+        sl = [slice(None)] * len(whole.shape)
+        sl[dim] = slice(lo, hi)
+        return whole[tuple(sl)]
+    parts = [one(lo, hi) for lo, hi in ranges]
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(whole, torch.Tensor):
+        return torch.cat(parts, dim=dim)
+    return np.concatenate(parts, axis=dim)
+
+
 def local_part(p, whole):
     """This rank's block of ``whole`` (a tensor or array of
-    ``whole_shape(p)``) as ``p`` was cut from it: ``whole`` itself where
-    ``p`` is not cut."""
+    ``whole_shape(p)``) as ``p`` was cut from it (``cut_ranges``):
+    ``whole`` itself where ``p`` is not cut."""
     cut = getattr(p, "cut", None)
     if cut is None:
         return whole
-    dim, index, n = cut
-    size = whole.shape[dim] // n
-    sl = [slice(None)] * len(whole.shape)
-    sl[dim] = slice(index * size, (index + 1) * size)
-    return whole[tuple(sl)]
+    return _take(whole, cut[0], cut_ranges(cut, whole.shape[cut[0]]))
+
+
+def assemble(parts: list, cut) -> torch.Tensor:
+    """The whole tensor from every rank's block of it (``parts``, in rank
+    order), each cut as ``cut`` says but for its index: the inverse of
+    ``local_part`` over the ranks."""
+    dim, _, n = cut[:3]
+    size = sum(t.shape[dim] for t in parts)
+    widths = [hi - lo for lo, hi in cut_ranges(cut, size)]
+    pieces = [t.split(widths, dim=dim) for t in parts]
+    return torch.cat([pieces[r][k] for k in range(len(widths))
+                      for r in range(n)], dim=dim)
 
 
 @torch.no_grad()
-def cut_params(module: nn.Module, cuts: dict[str, tuple[int, int, int]]
-               ) -> None:
+def cut_params(module: nn.Module, cuts: dict[str, tuple]) -> None:
     """Replace each parameter named in ``cuts`` by its block: ``{name:
     (dim, index, n)}`` keeps block ``index`` of ``n`` equal blocks along
-    ``dim``, a copy, so that the whole tensor can be freed.  The new
-    parameter keeps the init rule, the logical axes and ``requires_grad``,
-    and records ``whole_shape`` and ``cut`` (``local_part``)."""
-    for name, (dim, index, n) in cuts.items():
+    ``dim``, and ``(dim, index, n, segments)`` that block of each segment
+    (``cut_ranges``), a copy, so that the whole tensor can be freed.  The
+    new parameter keeps the init rule, the logical axes, the segments and
+    ``requires_grad``, and records ``whole_shape`` and ``cut``
+    (``local_part``)."""
+    for name, cut in cuts.items():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module
         old = getattr(owner, leaf)
-        if old.shape[dim] % n:
+        dim = cut[0]
+        if old.shape[dim] % cut[2]:
             raise ValueError(f"{name}: dim {dim} of {tuple(old.shape)} does "
-                             f"not split into {n} blocks")
-        new = nn.Parameter(old.chunk(n, dim)[index].clone(),
-                           requires_grad=old.requires_grad)
+                             f"not split into {cut[2]} blocks")
+        new = nn.Parameter(
+            _take(old, dim, cut_ranges(cut, old.shape[dim])).clone(),
+            requires_grad=old.requires_grad)
         new.init_rule, new.logical_axes = old.init_rule, old.logical_axes
-        new.whole_shape, new.cut = tuple(old.shape), (dim, index, n)
+        if hasattr(old, "segments"):
+            new.segments = old.segments
+        new.whole_shape, new.cut = tuple(old.shape), tuple(cut)
         setattr(owner, leaf, new)
 
 
@@ -138,6 +188,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             z = torch.randn(whole_shape(p), generator=generator,
                             device=p.device, dtype=torch.float32)
             p.copy_(local_part(p, z.mul_(scale)))
+            # freed before the next draw: a leaf's float32 copy (14 GiB
+            # for a deepseek-v3-671b expert stack) never meets the next's
+            del z
 
 
 def tree_from_paths(flat: dict[str, Any]) -> dict:

@@ -32,10 +32,14 @@ class Rwkv6(nn.Module):
     w_{r,k,v,g,o} (d, d), the decay's w_base (d,) and LoRA w_lora_a
     (d, 32), w_lora_b (32, d), the bonus u (H, K) and the output norm ln_x
     (d,).  Channel mix: mu_ck (d,), w_ck (d, d_ff), w_cv (d_ff, d), w_cr
-    (d, d)."""
+    (d, d).  ``tp``: None, or where the layer splits over a mesh's
+    ``model`` axis (``dist.tensor_parallel.RwkvSplit``): the rank's heads
+    of the time mix (columns of w_r, w_k, w_v, w_g, rows of w_o, u) and
+    its columns of the channel mix (w_ck, w_cr; rows of w_cv)."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
+        self.tp = None
         d = cfg.d_model
         H, K = rwkv6_heads(cfg), cfg.head_dim
         for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
@@ -65,9 +69,17 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _decay(p: Rwkv6, xw: torch.Tensor, clamp: float) -> torch.Tensor:
-    lora = torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b
-    w = -torch.exp(torch.clamp(p.w_base[None, None].float() + lora.float(),
+def _decay(p: Rwkv6, xw: torch.Tensor, clamp: float, tp=None
+           ) -> torch.Tensor:
+    """The data-dependent decay; with ``tp`` (the time mix split), at this
+    rank's columns: the LoRA's tanh output enters the split, w_lora_b and
+    w_base are read at the rank's columns."""
+    t = torch.tanh(xw @ p.w_lora_a)
+    if tp is None:
+        lora, base = t @ p.w_lora_b, p.w_base
+    else:
+        lora, base = tp.enter(t) @ tp.part(p.w_lora_b, 1), tp.part(p.w_base, 0)
+    w = -torch.exp(torch.clamp(base[None, None].float() + lora.float(),
                                -8.0, 2.0))
     return torch.clamp(w, -clamp, -1e-4)
 
@@ -82,23 +94,36 @@ def rwkv6_time_mix(p: Rwkv6, x: torch.Tensor, cfg: ModelConfig, *,
                    return_state: bool = False):
     """x: (B, L, d) -> (B, L, d).  With ``return_state``: (out, final WKV
     state (B, H, K, K) f32, the last input (B, d) for the next token
-    shift)."""
+    shift).  Split over ``model`` (``p.tp.time``), each token-shift mix
+    enters the rank's heads (``copy_to``), the WKV state is the rank's
+    heads', ``ln_x`` normalises over the whole width and ``w_o``'s partial
+    sums leave (``reduce_from``)."""
     B_, L, d = x.shape
-    H, K = rwkv6_heads(cfg), cfg.head_dim
+    tp = p.tp if p.tp is not None and p.tp.time else None
+    H, K = p.u.shape[0], cfg.head_dim
     last = shift_state if shift_state is not None else x.new_zeros((B_, d))
     xs = _token_shift(x, last)
-    r = (_mix(x, xs, p.mu_r) @ p.w_r).reshape(B_, L, H, K)
-    k = (_mix(x, xs, p.mu_k) @ p.w_k).reshape(B_, L, H, K)
-    v = (_mix(x, xs, p.mu_v) @ p.w_v).reshape(B_, L, H, K)
-    g = F.silu(_mix(x, xs, p.mu_g) @ p.w_g)
-    w = _decay(p, _mix(x, xs, p.mu_w), cfg.rwkv_w_clamp).reshape(B_, L, H, K)
+
+    def mixed(mu):
+        m = _mix(x, xs, mu)
+        return m if tp is None else tp.enter(m)
+    r = (mixed(p.mu_r) @ p.w_r).reshape(B_, L, H, K)
+    k = (mixed(p.mu_k) @ p.w_k).reshape(B_, L, H, K)
+    v = (mixed(p.mu_v) @ p.w_v).reshape(B_, L, H, K)
+    g = F.silu(mixed(p.mu_g) @ p.w_g)
+    w = _decay(p, _mix(x, xs, p.mu_w), cfg.rwkv_w_clamp,
+               tp).reshape(B_, L, H, K)
 
     scan = ops.rwkv6_scan if cfg.use_kernel else ref.rwkv6_chunked_ref
     res = scan(r, k, v, w, p.u, chunk=min(cfg.rwkv_chunk, L),
                initial_state=wkv_state, return_state=return_state)
     y, final = res if return_state else (res, None)
-    y = rms_norm(y.reshape(B_, L, d), p.ln_x, cfg.norm_eps) * g
-    out = y @ p.w_o
+    y = y.reshape(B_, L, H * K)
+    if tp is None:
+        out = (rms_norm(y, p.ln_x, cfg.norm_eps) * g) @ p.w_o
+    else:
+        y = tp.rms_norm(y, tp.part(p.ln_x, 0), cfg.norm_eps)
+        out = tp.exit((y * g) @ p.w_o)
     if return_state:
         return out, final, x[:, -1, :]
     return out
@@ -108,12 +133,21 @@ def rwkv6_channel_mix(p: Rwkv6, x: torch.Tensor, cfg: ModelConfig, *,
                       shift_state: torch.Tensor | None = None,
                       return_state: bool = False):
     """x: (B, L, d) -> (B, L, d); with ``return_state`` also the last input
-    (B, d) for the next token shift."""
+    (B, d) for the next token shift.  Split over ``model``
+    (``p.tp.channel``): the mix enters the split (``copy_to``), ``w_cv``'s
+    partial sums leave it, and each rank's columns of the receptance-gated
+    output are gathered (``gather_from``)."""
     B_, L, d = x.shape
     last = shift_state if shift_state is not None else x.new_zeros((B_, d))
     xk = _mix(x, _token_shift(x, last), p.mu_ck)
-    kv = torch.square(torch.relu(xk @ p.w_ck)) @ p.w_cv
-    out = torch.sigmoid(xk @ p.w_cr) * kv
+    tp = p.tp if p.tp is not None and p.tp.channel else None
+    if tp is None:
+        kv = torch.square(torch.relu(xk @ p.w_ck)) @ p.w_cv
+        out = torch.sigmoid(xk @ p.w_cr) * kv
+    else:
+        xk = tp.enter(xk)
+        kv = tp.exit(torch.square(torch.relu(xk @ p.w_ck)) @ p.w_cv)
+        out = tp.gather(torch.sigmoid(xk @ p.w_cr) * tp.part(kv, -1))
     if return_state:
         return out, x[:, -1, :]
     return out
@@ -127,11 +161,12 @@ RWKV6_STATE_AXES = {"wkv": ("batch", "heads", None, None),
 
 
 def rwkv6_state_init(cfg: ModelConfig, batch: int, *, device,
-                     n: int | None = None) -> dict:
+                     n: int | None = None, heads: int | None = None) -> dict:
     """Zeroed decode state; with ``n``, ``n`` states stacked on a leading
-    axis.  The WKV state (B, H, K, K) is float32, the two token-shift
-    states (B, d) the model's dtype."""
-    H, K = rwkv6_heads(cfg), cfg.head_dim
+    axis.  The WKV state (B, H, K, K) is float32, ``heads`` of them
+    (default all; a rank's share where they split over ``model``), the two
+    token-shift states (B, d) the model's dtype."""
+    H, K = heads or rwkv6_heads(cfg), cfg.head_dim
     lead = () if n is None else (n,)
     return {
         "wkv": torch.zeros(lead + (batch, H, K, K), dtype=torch.float32,

@@ -317,15 +317,20 @@ def _rel_l2(got, want) -> float:
 
 
 def _tp_forward(case: dict, mesh, tag: str) -> None:
-    """The whole batch on every rank, the model split: the logits
-    gathered over ``model`` within the case's bound of the reference's
-    (``logits_tol`` of their scale), the loss within 1e-5, every gradient
-    gathered within ``test_loss_and_grads_match_reference``'s bound of
-    it."""
+    """The whole batch on every rank, the model split: its parameters
+    gathered over ``model`` (``gather_cut``) equal to the reference's bit
+    for bit, the logits gathered within the case's bound of the
+    reference's (``logits_tol`` of their scale), the loss within 1e-5,
+    every gradient gathered within ``test_loss_and_grads_match_reference``'s
+    bound of it."""
     from repro_torch.dist.tensor_parallel import model_group
     from repro_torch.models.model import loss_fn
     from repro_torch.models.params import reference_paths
     model = _tp_model(case, mesh).requires_grad_(True)
+    params = reference_paths(_gathered(model, {
+        n: p.detach() for n, p in model.named_parameters()}))
+    for path, want in case["params"].items():     # gather_cut's round trip
+        assert np.array_equal(params[path].numpy(), want), (tag, path)
     batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
     logits, _ = model(batch["tokens"], batch.get("patch_embeds"))
     mg = model_group(model)
@@ -397,11 +402,7 @@ def _tp_serve(case: dict, mesh, tag: str) -> None:
     pe = serve.get("patch_embeds")
     pe = None if pe is None else torch.from_numpy(pe[rows])
     cache = model.init_cache(prompt[rows].shape[0], serve["max_len"])
-    if model.layers[0].attn.tp is not None and \
-            model.layers[0].attn.tp.kv_index is None:
-        assert cache["layers"]["k"].shape[3] == model.cfg.n_kv_heads // 2
-    else:
-        assert cache["layers"]["k"].shape[3] == model.cfg.n_kv_heads
+    _check_cache_share(model, cache)
     logits, cache = model.prefill(torch.from_numpy(prompt[rows]), cache, pe)
     for j, (want_lg, want_tok) in enumerate(zip(serve["logits"],
                                                 serve["tokens"])):
@@ -413,6 +414,31 @@ def _tp_serve(case: dict, mesh, tag: str) -> None:
                                       err_msg=f"{tag} token {j}")
         if j + 1 < len(serve["logits"]):
             logits, cache = model.decode(tok, cache)
+
+
+def _check_cache_share(model, cache: dict) -> None:
+    """The rank's cache keeps 1/n of the kv heads where they split, of the
+    ssm heads and conv channels where Mamba2 splits, of the WKV heads
+    where the time mix splits, and every other dim whole."""
+    from repro_torch.dist.tensor_parallel import model_group
+    from repro_torch.models.params import paths_from_tree
+    mg = model_group(model)
+    runs = model.split_plan.runs()
+    split = {"layers.ssm": (2, runs.get("mamba2")),
+             "layers.conv": (3, runs.get("mamba2")),
+             "layers.wkv": (2, runs.get("time mix"))}
+    blocks = model.attention_layers()
+    tp = blocks[0].attn.tp if blocks else None
+    kv = tp is not None and tp.kv_index is None
+    for name in ("layers", "dense_layers", "shared_attn"):
+        split[f"{name}.k"] = split[f"{name}.v"] = (3, kv)
+    whole = paths_from_tree(model.init_cache(1, 4, whole=True))
+    for path, t in paths_from_tree(model.init_cache(1, 4)).items():
+        dim, cut = split.get(path, (None, False))
+        want = list(whole[path].shape)
+        if cut:
+            want[dim] //= mg.size
+        assert list(t.shape) == want, (path, tuple(t.shape), want)
 
 
 def tp_parity(rank: int, world: int, directory: Path) -> None:
@@ -427,6 +453,40 @@ def tp_parity(rank: int, world: int, directory: Path) -> None:
         _tp_forward(case, mesh, tag)
         _tp_steps(case, mesh, tag)
         _tp_serve(case, mesh, tag)
+
+
+def tp_norm_backward(rank: int, world: int, directory: Path) -> None:
+    """zamba2-7b's smoke case on a (1, 2) mesh: with ``reduce_from``
+    (identity backward) in place of ``sum_partial`` in the gated norm, the
+    logits still match and the gradient of ``norm_w`` leaves the
+    reference's bound; with ``sum_partial`` it is within it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import reference_paths
+    case = _tp_case(directory)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
+                                                               "model"))
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    path = "layers.mixer.norm_w"
+    want, tol = case["grads"][path], case["grad_tol"][path]
+    gaps, right = {}, tp.sum_partial
+    try:
+        for name, fn in (("sum_partial", right),
+                         ("reduce_from", tp.reduce_from)):
+            tp.sum_partial = fn
+            model = _tp_model(case, mesh).requires_grad_(True)
+            logits, _ = model(batch["tokens"])
+            _close_to_scale(model.tp.gather(logits).detach().numpy(),
+                            case["logits"], case["logits_tol"], name)
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            grads = _gathered(model, {n: p.grad for n, p
+                                      in model.named_parameters()})
+            gaps[name] = _rel_l2(reference_paths(grads)[path].numpy(), want)
+    finally:
+        tp.sum_partial = right
+    assert gaps["sum_partial"] <= tol < gaps["reduce_from"], (gaps, tol)
 
 
 def tp_norm(rank: int, world: int, directory: Path) -> None:

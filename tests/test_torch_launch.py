@@ -4,7 +4,10 @@ dryrun}``) against the JAX package's, on the CPU; it mirrors
 
 - The dry-run CLI in a subprocess (a default process group starts once a
   process) for rwkv6-1.6b x decode_32k on both production meshes: 256 and
-  512 ranks, no error row, FLOPs and peak above 0.
+  512 ranks, no error row, FLOPs and peak above 0, the split's
+  all-reduces and all-gathers; for zamba2-7b x decode_32k at 16x16 a
+  rank's FLOPs and peak with its Mamba2 layers split, and the dry run's
+  whole cache (ssm heads from the leaf, not ``cfg.n_heads``).
 - Its memory rows against the reference's dry run (in a subprocess of its
   own, ``jax_subprocess_env``) on the 16x16 mesh for rwkv6-1.6b, mixtral-
   8x22b and musicgen-large x decode_32k: ``n_devices`` and
@@ -102,8 +105,63 @@ def test_dryrun_cell_runs_on_the_production_mesh(port_cli_rows, mesh, n):
                       "degraded_shardings", "lower_s", "compile_s"}
     assert set(r["bytes_per_device"]) == {"argument", "output", "temp",
                                           "peak"}
-    # serving replicas: a decode step issues no collective
-    assert r["collective_bytes_total"] == 0.0
+    # split over ``model``, a decode step all-reduces partial sums and
+    # gathers the channel mix's columns and the last logits; the batch
+    # split issues none
+    assert set(r["collective_bytes"]) == {"all-reduce", "all-gather"}
+    assert r["collective_bytes_total"] > 0.0
+
+
+def test_dryrun_zamba2_decode_row_splits(tmp_path):
+    """zamba2-7b x decode_32k at 16x16 with its Mamba2 layers, shared
+    block and vocabulary split over ``model``: a rank's FLOPs at most
+    2.44e10 (1.951e11 whole on the rank) and its peak at most 12 GiB
+    (66.29 whole), and the split plan printed."""
+    out = tmp_path / "dr.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--arch", "zamba2-7b", "--shape", "decode_32k", "--out", str(out)],
+        capture_output=True, text=True, env=_port_env(), timeout=300,
+        cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (r,) = json.loads(out.read_text())
+    assert "error" not in r, r
+    assert 0 < r["flops_total"] <= 2.44e10, r
+    assert 0 < r["bytes_per_device"]["peak"] <= 12 * 2**30, r
+    assert "mamba2 split, attention split, mlp split, vocab split" \
+        in proc.stdout, proc.stdout
+
+
+def test_dryrun_global_cache_restores_whole_heads():
+    """The dry run's whole cache of a split zamba2-7b (``_global_cache``):
+    the ssm state's 112 heads (not ``cfg.n_heads``, 32), the conv state's
+    7,296 channels and the shared block's 32 kv heads, as the unsplit
+    model's cache has them, while the rank keeps 7, 456 and 2."""
+    from repro_torch.launch.dryrun import _global_cache
+    from repro_torch.models.params import paths_from_tree
+
+    class Mesh:
+        shape = {"data": 16, "model": 16}
+
+        def get_group(self, axis):
+            return None
+
+        def get_local_rank(self, axis):
+            return 0
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg, "meta", seed=None, mesh=Mesh())
+    whole = build_model(cfg, "meta", seed=None)
+    got = {k: tuple(v.shape) for k, v in _global_cache(model, 128,
+                                                       32768).items()}
+    want = {k: tuple(v.shape) for k, v in paths_from_tree(
+        whole.init_cache(128, 32768)).items()}
+    assert got == want
+    assert got["layers.ssm"][2] == cfg.ssm_heads == 112 != cfg.n_heads
+    assert got["layers.conv"][3] == 7296
+    assert got["shared_attn.k"][3] == 32
+    local = paths_from_tree(model.init_cache(8, 32768))
+    assert (local["layers.ssm"].shape[2], local["layers.conv"].shape[3],
+            local["shared_attn.k"].shape[3]) == (7, 456, 2)
 
 
 @pytest.fixture(scope="module")

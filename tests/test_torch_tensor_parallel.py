@@ -7,12 +7,14 @@ unsplit results, on the CPU.
   process, the forward logits and loss, every gradient (with its float32
   error against its own float64 run, as ``test_torch_train`` bounds a
   gradient), three steps of its ``make_train_step``, and a prefill with 4
-  greedy decode steps, for five configs: the smoke configs of qwen2-vl-2b
-  and minitron-4b (3 q heads over 1 kv head: at ``model`` = 2 their
-  attention runs whole), musicgen-large's (4 over 4: split), and two made
-  with ``dataclasses.replace`` from qwen2-vl-2b's: 4 q heads over 2 kv
-  heads (M-RoPE and the q/k/v biases on split heads) and 4 over 1 (the q
-  heads split, the kv heads not: llama3-405b's case at 16).
+  greedy decode steps, for seven configs: the smoke configs of
+  qwen2-vl-2b and minitron-4b (3 q heads over 1 kv head: at ``model`` = 2
+  their attention runs whole), musicgen-large's (4 over 4: split), two
+  made with ``dataclasses.replace`` from qwen2-vl-2b's: 4 q heads over 2
+  kv heads (M-RoPE and the q/k/v biases on split heads) and 4 over 1 (the
+  q heads split, the kv heads not: llama3-405b's case at 16), and the
+  smoke configs of zamba2-7b (8 SSD heads, 2 x 16 B/C columns, the shared
+  block at 4 over 4 heads) and rwkv6-1.6b (4 heads of 16).
 - Spawned gloo groups (``_dist_workers``) of 2 ranks as (1, 2) and of 4
   ranks as (2, 2) and (2, 1, 2) cut each rank's blocks out of those
   weights (``load_reference_params``) and hold the split model to them:
@@ -37,8 +39,12 @@ unsplit results, on the CPU.
   unsplit steps' (the band ``chip_smoke.py``'s two-process phase holds
   the card to).
 - Which regions split, for the six configs of the dense, vlm and audio
-  families at ``model`` = 2 and 16, against ``spec_for``; the other
-  families stay whole.
+  families and for zamba2-7b and rwkv6-1.6b at ``model`` = 2 and 16,
+  against ``spec_for``; the MoE and MLA families stay whole.  Mamba2's
+  index-map cut put back together equals the whole leaf bit for bit.
+  (The zamba2-7b and rwkv6-1.6b parity cases, and the gated norm's need
+  of its all-reduce backward, run from ``test_torch_tensor_parallel_scan``
+  on this file's references.)
 - A local embedding lookup of ids outside the rank's rows gives zeros.
 - The dry run on a fake 256/512-rank group: a train cell's FLOPs a rank
   at 2x16x16 are half its 16x16 row's (8 rows a rank, not 16).
@@ -79,7 +85,13 @@ CONFIGS = {
     "musicgen-large": ("musicgen-large", {}),
     "qwen2-vl-2b-4q2kv": ("qwen2-vl-2b", {"n_heads": 4, "n_kv_heads": 2}),
     "qwen2-vl-2b-4q1kv": ("qwen2-vl-2b", {"n_heads": 4, "n_kv_heads": 1}),
+    "zamba2-7b": ("zamba2-7b", {}),
+    "rwkv6-1.6b": ("rwkv6-1.6b", {}),
 }
+# the scan families' parity cases run from test_torch_tensor_parallel_scan
+# .py: a file of its own goes to a test worker of its own, and their JAX
+# references take minutes on the CPU
+SCAN_CONFIGS = ("zamba2-7b", "rwkv6-1.6b")
 # a spawned group must end within this (a few tens of seconds when it
 # passes)
 GROUP_TIMEOUT_S = 240
@@ -250,7 +262,8 @@ def _write_case(tmp_path: Path, case: dict) -> None:
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", [n for n in CONFIGS
+                                  if n not in SCAN_CONFIGS])
 def test_split_matches_reference(tmp_path, name, world):
     """The split model against the reference's unsplit results on every
     mesh of ``_dist_workers.TP_MESHES[world]`` (see the module's
@@ -321,16 +334,122 @@ def test_split_plan_follows_spec_for(arch, n):
     assert f"model axis {n}" in plan.describe()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b",
-                                  "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
 def test_other_families_stay_whole(arch):
-    """A mesh with a ``model`` axis leaves the MoE, MLA, RWKV6 and hybrid
-    families whole (their splits are later slices): no parameter cut."""
+    """A mesh with a ``model`` axis leaves the MoE and MLA families whole
+    (their splits are later slices): no parameter cut."""
     model = build_model(get_config(arch, "full"), "meta", seed=None)
     model.shard(_FakeMesh({"data": 16, "model": 16}))
     assert not model.split_plan.any and model.tp is None
     assert "later slice" in model.split_plan.describe()
     assert not any(hasattr(p, "cut") for p in model.parameters())
+
+
+class _RankMesh(_FakeMesh):
+    """A stand-in mesh that ``shard_model`` can cut on: rank ``rank`` of
+    its ``model`` axis, no process group (cutting needs none)."""
+
+    def __init__(self, shape: dict, rank: int = 0):
+        super().__init__(shape)
+        self.rank = rank
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return self.rank
+
+
+@pytest.mark.parametrize("n", [2, 16])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_ssm_families_split_as_spec_for(arch, n):
+    """The full zamba2-7b and rwkv6-1.6b at ``model`` = 2 and 16 (on the
+    meta device): every region splits (Mamba2, the shared block's
+    attention and MLP, the vocabulary; the time mix, the channel mix, the
+    vocabulary), exactly the leaves whose ``spec_for`` shards a dim over
+    ``model`` are cut, and each cut block's shape is the spec's block
+    (zamba2-7b's w_in at 16: 911 of 14,576 columns, 448 + 448 + 8 + 7)."""
+    cfg = get_config(arch, "full")
+    model = build_model(cfg, "meta", seed=None)
+    mesh = _RankMesh({"data": 16, "model": n})
+    model.shard(mesh)
+    plan = model.split_plan
+    assert plan.family is None and all(plan.runs().values()), \
+        plan.describe()
+    want = ({"mamba2", "attention", "mlp", "vocab"} if arch == "zamba2-7b"
+            else {"time mix", "channel mix", "vocab"})
+    assert set(plan.runs()) == want
+    assert "later slice" not in plan.describe()
+    rules = sharding.default_rules(False)
+    n_cut = 0
+    for name, p in model.named_parameters():
+        spec = sharding.spec_for(p.whole_shape if hasattr(p, "cut")
+                                 else tuple(p.shape), p.logical_axes,
+                                 rules, mesh)
+        assert plan.specs[name] == spec, name
+        shape = getattr(p, "whole_shape", tuple(p.shape))
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        block = [s // n if e == "model" else s for s, e in zip(shape, spec)]
+        assert hasattr(p, "cut") == ("model" in spec), name
+        assert list(p.shape) == block, (name, tuple(p.shape), block)
+        n_cut += hasattr(p, "cut")
+    assert n_cut > 0
+    if arch == "zamba2-7b":
+        mixer = model.layers[0].mixer
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        assert mixer.w_in.cut == (1, 0, n, (di, di, 2 * N, H))
+        assert mixer.w_in.shape[1] == (2 * di + 2 * N + H) // n
+        if n == 16:
+            assert mixer.w_in.shape[1] == 911 == 448 + 448 + 8 + 7
+            assert mixer.conv_b.shape[0] == 456 == 448 + 8
+        cache = model.init_cache(1, 4)
+        assert cache["layers"]["ssm"].shape[2] == H // n
+        assert cache["layers"]["conv"].shape[3] == (di + 2 * N) // n
+        assert model.init_cache(1, 4, whole=True)["layers"]["ssm"].shape[2] \
+            == H
+    else:
+        assert model.layers[0].time.u.shape[0] == 32 // n
+        assert model.init_cache(1, 4)["layers"]["wkv"].shape[2] == 32 // n
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_mamba2_index_map_cut_round_trips(n):
+    """Every Mamba2 leaf of zamba2-7b's smoke config (8 heads, 2 x 16 B/C
+    columns), cut over ``n`` ranks by its segments: the ranks' blocks put
+    back together (``params.assemble``, what ``gather_cut`` does after its
+    all-gather) equal the whole leaf bit for bit, and rank r's block of
+    w_in holds the z and x columns and the dt column of its heads and its
+    2N / n B/C columns."""
+    from repro_torch.models.params import assemble, local_part
+    cfg = get_config("zamba2-7b", "smoke")
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    whole = build_model(cfg, "cpu", seed=1)
+    ranks = [build_model(cfg, "meta", seed=None).shard(
+        _RankMesh({"data": 1, "model": n}, r)) for r in range(n)]
+    checked = 0
+    for name, w in whole.named_parameters():
+        own = [m.get_parameter(name) for m in ranks]
+        if ".mixer." not in name or not hasattr(own[0], "cut"):
+            assert ".mixer." not in name or own[0].logical_axes == (None,)
+            continue
+        blocks = [local_part(p, w.detach()) for p in own]
+        assert all(tuple(b.shape) == tuple(p.shape)
+                   for b, p in zip(blocks, own)), name
+        assert torch.equal(assemble(blocks, own[0].cut), w.detach()), name
+        checked += 1
+        if name.endswith("w_in"):
+            h, b = H // n, 2 * N // n
+            for rank, blk in enumerate(blocks):
+                cols = (list(range(rank * h * P, (rank + 1) * h * P))
+                        + list(range(di + rank * h * P,
+                                     di + (rank + 1) * h * P))
+                        + list(range(2 * di + rank * b,
+                                     2 * di + (rank + 1) * b))
+                        + list(range(2 * di + 2 * N + rank * h,
+                                     2 * di + 2 * N + (rank + 1) * h)))
+                assert torch.equal(blk, w.detach()[:, cols]), rank
+    assert checked == 5 * cfg.n_layers      # w_in, conv_w, conv_b, norm_w, w_out
+
 
 
 def test_local_lookup_gives_zeros_outside_the_rank_rows():
