@@ -145,21 +145,38 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               ``rwkv6``, a prefill; 24 ``rwkv6`` a decode step) and a
               checked prefill and decode step, every launch at the local
               shapes held to its plain version, and the float32 control
-              at 2 layers (zamba2-7b's shared block applied once).  Each
-              rank's step p50, peak memory and prefill time are printed
-              beside the card's name and power limit; two processes share
-              its SMs, so none is a speed figure for the split.  A rank's
-              failure fails the run;
+              at 2 layers (zamba2-7b's shared block applied once).  Then
+              the MoE family on the same two ranks (``TP_MOE_ARCHS``, no
+              train step), each region split: mixtral-8x22b at 8 layers
+              (4 of 8 experts, 24 of 48 q heads over 4 of 8 kv heads, half
+              the vocabulary a rank) and deepseek-v3-671b at 4 layers, 3
+              dense and 1 MoE (128 of 256 experts, 64 of 128 MLA heads,
+              half the dense and shared FFNs and the vocabulary; 5 layers
+              would leave the two ranks' weights and checks ~70 GB of the
+              80), each seeded a rank at a time (``_init_in_turn``): a
+              prefill of 8 x 2048 (8 or 4 ``flash_attention``) and 8
+              decode steps, exact launches, a checked prefill and decode
+              step with every launch at the local shapes held to its
+              plain version (MLA's to float64, as phase 14 holds them),
+              the first MoE layer's split bf16 output on that prefill's
+              activations against the unsplit layer's on rank 0
+              (``_moe_layer_check``), and the float32 control without
+              train steps (mixtral-8x22b at 2 layers, its experts split;
+              deepseek-v3-671b's 3 dense MLA layers).  Each rank's step
+              p50, peak memory and prefill time are printed beside the
+              card's name and power limit; two processes share its SMs,
+              so none is a speed figure for the split.  A rank's failure
+              fails the run;
 18. launch -- the launch tooling and the static analysis on the card's
               host, each in a process of its own (a default process group
               starts once a process, and phase 16's was in this one), all
               at once: ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
               decode_32k on the (16, 16) and (2, 16, 16) meshes of a fake
               256- and 512-rank group, for qwen2-vl-2b x train_4k on both
-              and for llama3-405b x decode_32k and zamba2-7b x decode_32k
-              on the (16, 16) one (fake tensors on the card's device type:
-              nothing allocated, no kernel launched; every family but MoE
-              and MLA split over ``model``),
+              and for llama3-405b, zamba2-7b, mixtral-8x22b and
+              deepseek-v3-671b x decode_32k on the (16, 16) one (fake
+              tensors on the card's device type: nothing allocated, no
+              kernel launched; every family split over ``model``),
               its cost mode for rwkv6-1.6b x decode_32k, then
               ``repro_torch.launch.roofline`` over those rows; an error
               row, a wrong ``n_devices`` or zero FLOPs or peak fails the
@@ -168,8 +185,11 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               at 16x16, or a 2x16x16 row whose FLOPs are not half of it,
               or the split decode rows at 16x16 past their gates
               (``SPLIT_DECODE_GATES``: zamba2-7b within 2.44e10 FLOPs and
-              12 GiB, its argument bytes the reference's; rwkv6-1.6b
-              within 2.9e9 FLOPs), or without their split plan's line;
+              12 GiB, rwkv6-1.6b within 2.9e9 FLOPs, mixtral-8x22b within
+              3.1e11 and 50 GiB, deepseek-v3-671b within 1.93e12 and 196
+              GiB; zamba2-7b's, mixtral-8x22b's and deepseek-v3-671b's
+              argument bytes the reference's), or without their split
+              plan's line;
               ``python -m repro_torch.analysis src/repro_torch`` must find
               nothing.  Each row is printed beside the card's name and
               power limit.
@@ -833,9 +853,11 @@ def phase_kernel_flash_attention(device) -> dict:
     KD = 4 instance, qwen2-vl-2b's 12 over 2 of 128 and a rank's 6 over 1
     of them at ``model`` = 2, phase 17's, causal) and of MLA
     (deepseek-v3-671b's 128 heads at q-k width 192, causal: the KD = 12
-    instance, held to the padded KD = 16 one and timed beside it), each
-    gated to the instance its D takes, reported and not gated on time.  The
-    row reported is the zamba2 serve shape in bf16, the path's dtype."""
+    instance, held to the padded KD = 16 one and timed beside it), and at
+    phase 17's MoE shapes a rank (mixtral-8x22b's 24 over 4, MLA's 64
+    heads), each gated to the instance its D takes, reported and not gated
+    on time.  The row reported is the zamba2 serve shape in bf16, the
+    path's dtype."""
     import torch
     serve_shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 112)
     row = None
@@ -855,6 +877,10 @@ def phase_kernel_flash_attention(device) -> dict:
              "(qwen2-vl-2b, phase 17)", None),
             ((16, 16, 112), "hybrid shared block, a rank's heads at "
              "model = 2 (zamba2-7b, phase 17)", None),
+            ((24, 4, 128), "MoE GQA shape, a rank's heads at model = 2 "
+             "(mixtral-8x22b, phase 17)", None),
+            ((64, 64, 192), "MLA shape, a rank's heads at model = 2 "
+             "(deepseek-v3-671b, phase 17)", None),
             ((128, 128, 192), "MLA shape (deepseek-v3-671b)", 16)):
         r = _attention_case(device, torch.bfloat16,
                             (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, hq, hkv,
@@ -3265,15 +3291,43 @@ TP_BF16_LOSS_RTOL = 2.0 ** -8
 # 4 x 1024, their losses held to phase 15's), then each whole at full
 # depth through a prefill of 8 x 2048 and 8 decode steps
 TP_SCAN_ARCHS = ("zamba2-7b", "rwkv6-1.6b")
-TP_TIMEOUT_S = 800              # both ranks; a passing phase takes < 400 s
+# the MoE family split over the same mesh after them, without a train step
+# (a rank's share of either's training state does not fit beside the
+# other's): full width at these depths (mixtral-8x22b at phase 12's 8;
+# deepseek-v3-671b's 3 dense and 1 MoE layers: at phase 14's 5 the two
+# ranks' weights, 26.7 GB each, and their checked prefills would take
+# ~70 GB of the card's 80), a prefill of 8 x 2048 and TP_SERVE_STEPS
+# decode steps
+TP_MOE_ARCHS = ("mixtral-8x22b", MLA_ARCH)
+TP_MOE_LAYERS = {"mixtral-8x22b": 8, MLA_ARCH: 4}
+# the float32 control's depth: mixtral-8x22b's 2 MoE layers (9.7 GB each
+# in float32, split by experts), deepseek-v3-671b's 3 dense MLA layers (a
+# float32 MoE layer is 45 GB; its split experts are held in bf16 by
+# ``_moe_layer_check``)
+TP_F32_MOE_LAYERS = {"mixtral-8x22b": 2, MLA_ARCH: 3}
+# the split MoE layer's bf16 output against the unsplit layer's on the same
+# activations.  A token's output sums its experts' and the shared
+# expert's outputs in bf16 in another order split (each rank's partial
+# sum rounded, then the two): a few roundings of 2^-9 of the partial sums.
+# Over the whole output, relative L2, within MOE_BF16_L2 (two roundings);
+# a token's largest gap over its largest output element, the worst of
+# 16,384 tokens, within MOE_BF16_TOKEN: where a token's terms cancel its
+# partial sums exceed its output (deepseek-v3-671b's worst token read
+# 1.18e-2 and 1.41e-2 of its scale at 4 and 5 layers), and a pair dropped
+# or sent to another expert moves a token by its gate's share, ~1/k of its
+# scale (1/8 for deepseek, 1/2 for mixtral)
+MOE_BF16_L2 = 2.0 ** -7
+MOE_BF16_TOKEN = 2.0 ** -4
+TP_TIMEOUT_S = 800              # both ranks; a passing phase takes < 500 s
 TP_COLLECTIVE_TIMEOUT_S = 120   # a rank waiting past this raises
 
 
 def tp_worker(rank: int, directory: str) -> int:
     """One rank of phase 17, in a process of its own: joins the gloo group
     on a ``FileStore`` in ``directory``, runs ``_tp_model`` of qwen2-vl-2b
-    and of each of ``TP_SCAN_ARCHS`` and writes their results to
-    ``rank<r>.json`` there.  A failure raises (exit 1)."""
+    and of each of ``TP_SCAN_ARCHS``, then ``_tp_moe`` of each of
+    ``TP_MOE_ARCHS``, and writes their results to ``rank<r>.json`` there.
+    A failure raises (exit 1)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3289,6 +3343,8 @@ def tp_worker(rank: int, directory: str) -> int:
     try:
         out = {arch: _tp_model(rank, device, arch)
                for arch in (TRAIN_ARCH,) + TP_SCAN_ARCHS}
+        out.update({arch: _tp_moe(rank, device, arch)
+                    for arch in TP_MOE_ARCHS})
     finally:
         dist.destroy_process_group()
     with open(f"{directory}/rank{rank}.json", "w") as f:
@@ -3416,6 +3472,180 @@ def _tp_model(rank: int, device, arch: str) -> dict:
     return out
 
 
+def _init_in_turn(model, seed: int) -> None:
+    """``model.init(seed)`` on each rank of the default group in turn, the
+    cache emptied after: a split leaf is drawn whole in float32 before its
+    block is kept (deepseek-v3-671b's expert stacks: 15 GB a leaf), and two
+    ranks drawing at once on one card would hold two such draws."""
+    import torch
+    import torch.distributed as dist
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            model.init(seed)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def _tp_moe(rank: int, device, arch: str) -> dict:
+    """Phase 17 for the MoE family's ``arch`` on one rank (see the
+    module's docstring), split over the (1, 2) mesh at full width and
+    ``TP_MOE_LAYERS`` layers, seeded a rank at a time: a prefill of 8 x
+    2048 and ``TP_SERVE_STEPS`` decode steps after a first-use run, exact
+    launches; a prefill and a decode step with every launch held to its
+    plain version (``_check_on_activations``, MLA's plain attention by
+    batch row past ``PLAIN_SCORES_BYTES``), whose first MoE layer's input
+    ``_moe_layer_check`` then takes; the float32 control.  -> its launches,
+    times, peak and tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+
+    device = torch.device(device)
+    tag = f"[tp rank {rank} {arch}]"
+    mesh = _tp_mesh(device)
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, n_layers=TP_MOE_LAYERS[arch])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, seed=None, mesh=mesh)
+    _init_in_turn(model, 0)
+    plan = model.split_plan
+    runs = plan.runs()
+    check(model.cfg.use_kernel is True and runs["experts"]
+          and all(v for k, v in runs.items() if k != "expert mlp"),
+          f"{tag} at model = {TP_RANKS} does not split every region on the "
+          f"kernel route: {plan.describe()}")
+    n_local = sum(p.numel() for p in model.parameters())
+    print(f"{tag} {plan.describe()}; {cfg.n_layers} of {full.n_layers} "
+          f"layers" + (f" ({cfg.first_k_dense} dense, "
+                       f"{cfg.n_layers - cfg.first_k_dense} MoE)"
+                       if cfg.first_k_dense else "")
+          + f", {n_local / 1e9:.3f} B parameters on this rank, built whole "
+          f"from the seed a rank at a time and cut in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=device)
+    serve(model, prompts[:1], 2)        # first use of each path
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    res = serve(model, prompts, TP_SERVE_STEPS + 1)
+    counts = _lm_counts(launch_counts())
+    serve_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    want = lm_launches(cfg, 1, TP_SERVE_STEPS)
+    check(counts == want, f"{tag} a split prefill and {TP_SERVE_STEPS} "
+          f"decode steps launched {counts}, not {want}")
+    print(f"{tag} {cfg.n_layers} layers: split prefill of {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} in {res.prefill_ms:.3f} ms, {TP_SERVE_STEPS} "
+          f"greedy decode steps p50 {res.decode_p50_ms():.3f} ms; peak "
+          f"memory {serve_peak:.3f} GB; launches {counts}")
+    check(res.tokens.shape == (SERVE_BATCH, TP_SERVE_STEPS + 1)
+          and bool((res.tokens >= 0).all()
+                   and (res.tokens < cfg.vocab_size).all()),
+          f"{tag} greedy tokens {tuple(res.tokens.shape)} out of range")
+    out = {"prefill_ms": res.prefill_ms, "decode_p50_ms": res.decode_p50_ms(),
+           "serve_peak_gb": serve_peak, "tokens": res.tokens.tolist(),
+           "counts": {**dict.fromkeys(_kernel_modules(), 0), **counts}}
+    del res
+    torch.cuda.empty_cache()
+
+    seen = []
+    forward = moe_mod.moe_forward
+
+    def first_input(p, x, cfg_):
+        if not seen:
+            seen.append(x.clone())
+        return forward(p, x, cfg_)
+    plain = ops.plain_attention
+    heads = model.layers[0].attn.wo.shape[0]     # the rank's q heads
+    if SERVE_BATCH * heads * SERVE_PROMPT ** 2 * 4 > PLAIN_SCORES_BYTES:
+        ops.plain_attention = plain_attention_by_row(plain)
+    moe_mod.moe_forward = first_input
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        reset_launch_counts()
+        _check_on_activations(model, prompts, f"bf16 split, rank {rank}")
+        reset_launch_counts()
+    finally:
+        moe_mod.moe_forward, ops.plain_attention = forward, plain
+    out["check_peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"{tag} the checked prefill and decode step's peak memory "
+          f"{out['check_peak_gb']:.3f} GB")
+    layer = model.layers[0].moe
+    del model, prompts
+    torch.cuda.empty_cache()
+    out["moe_layer"] = _moe_layer_check(layer, seen[0], cfg, device, tag)
+    del layer, seen
+    torch.cuda.empty_cache()
+    out["control"] = _tp_f32_control(device, mesh, tag, arch)
+    return out
+
+
+def _moe_layer_check(layer, h, cfg, device, tag: str) -> float:
+    """The split MoE ``layer``'s bf16 output on ``h`` (the activations that
+    reach it in a checked prefill) against the unsplit layer's: rank 0
+    assembles the whole layer from every rank's blocks (each broadcast by
+    its owner in turn) and runs it whole; the relative L2 gap within
+    ``MOE_BF16_L2``, each token's largest gap within ``MOE_BF16_TOKEN`` of
+    its largest output element.  -> the larger of the two over its gate
+    (rank 0; 0 elsewhere)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import InitCtx, cut_ranges
+    mg = layer.tp.mg
+    whole = (moe_mod.moe_init(cfg, InitCtx(cfg.dtype, device))
+             if mg.rank == 0 else None)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            cut = getattr(p, "cut", None)
+            if cut is None:
+                if whole is not None:
+                    whole.get_parameter(name).copy_(p)
+                continue
+            dim = cut[0]
+            for r in range(mg.size):
+                block = p.detach().clone() if r == mg.rank else                     torch.empty_like(p)
+                dist.broadcast(block, dist.get_global_rank(mg.group, r),
+                               group=mg.group)
+                if whole is not None:
+                    w = whole.get_parameter(name)
+                    lo, hi = cut_ranges((dim, r, mg.size), w.shape[dim])[0]
+                    w.narrow(dim, lo, hi - lo).copy_(block)
+                del block
+        t0 = time.perf_counter()
+        got, _ = moe_mod.moe_forward(layer, h, cfg)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        ratio = 0.0
+        if whole is not None:
+            want, _ = moe_mod.moe_forward(whole, h, cfg)
+            diff = got.float() - want.float()
+            l2 = (diff.norm() / want.float().norm()).item()
+            token = (diff.abs().amax(-1)
+                     / want.float().abs().amax(-1)).max().item()
+            n_e = layer.tp.experts(cfg.n_experts)[1]
+            print(f"{tag} the first MoE layer split ({n_e} of "
+                  f"{cfg.n_experts} experts a rank, {split_s:.3f} s) against "
+                  f"the unsplit layer on this rank, bf16, on the checked "
+                  f"prefill's {h.shape[0]} x {h.shape[1]} activations: "
+                  f"relative L2 gap {l2:.3e} (gate {MOE_BF16_L2:g}), a "
+                  f"token's largest gap at most {token:.3e} of its largest "
+                  f"output element (gate {MOE_BF16_TOKEN:g})")
+            check(l2 <= MOE_BF16_L2 and token <= MOE_BF16_TOKEN,
+                  f"{tag} the split MoE layer's output differs from the "
+                  f"unsplit one's: relative L2 {l2:.3e}, a token's "
+                  f"{token:.3e} of its scale")
+            ratio = max(l2 / MOE_BF16_L2, token / MOE_BF16_TOKEN)
+            del whole, want, diff
+        del got
+    dist.barrier()
+    return ratio
+
+
 def _tp_mesh(device):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device.type, (1, TP_RANKS),
@@ -3425,7 +3655,8 @@ def _tp_mesh(device):
 def _conditioned(model) -> None:
     """Each stacked layer weight of ``model`` (drawn at the reference's
     std 1/sqrt(depth)) rescaled in place to std 1/sqrt(its fan-in, the
-    leading dim of its whole shape), a split block as its whole weight.
+    leading dim of its whole shape, or of an expert's: the dim after
+    ``experts``), a split block as its whole weight.
     At 2 layers the reference's init leaves the stacked weights at std
     0.71: the attention scores reach the thousands, every softmax row is
     one key, and a float32 near-tie between two keys goes either way with
@@ -3437,27 +3668,39 @@ def _conditioned(model) -> None:
     with torch.no_grad():
         for name, p in model.named_parameters():
             kind, scale = p.init_rule
-            if name.startswith("layers.") and kind == "normal":
-                p.mul_(float(whole_shape(p)[0]) ** -0.5 / scale)
+            if name.startswith(("layers.", "dense_layers.")) \
+                    and kind == "normal":
+                fan_in = whole_shape(p)[p.logical_axes[0] == "experts"]
+                p.mul_(float(fan_in) ** -0.5 / scale)
 
 
 def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
     """``arch`` at full width and ``TP_F32_LAYERS`` layers in float32
-    (zamba2-7b's shared block applied once, after its second layer), its
-    weights ``_conditioned``, split over ``mesh`` and unsplit on this
+    (zamba2-7b's shared block applied once, after its second layer; the
+    MoE family at ``TP_F32_MOE_LAYERS``, deepseek-v3-671b's all dense),
+    its weights ``_conditioned``, split over ``mesh`` and unsplit on this
     rank, from the same seed: two train steps (losses, gradient norms;
     AdamW's eps 1; qwen2-vl-2b at phase 15's batch and microbatches, the
-    scan families at theirs), then a prefill of the serve prompts and
+    scan families at theirs; none for the MoE family, whose float32
+    training state does not fit), then a prefill of the serve prompts and
     ``TP_SERVE_STEPS`` greedy decode steps (last-position logits,
     tokens), the split ones within ``TP_F32_RTOL`` (relative; the logits
     of their scale) of the unsplit ones, the tokens equal."""
     import dataclasses
     import torch
     import repro_torch.train.loop as loop
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = _train_cfg(arch, TP_F32_LAYERS, torch.float32)
+    moe = arch in TP_MOE_ARCHS
+    if moe:
+        n = TP_F32_MOE_LAYERS[arch]
+        full = get_config(arch, "full")
+        cfg = dataclasses.replace(full, n_layers=n, dtype=torch.float32,
+                                  first_k_dense=min(full.first_k_dense, n))
+    else:
+        cfg = _train_cfg(arch, TP_F32_LAYERS, torch.float32)
     if cfg.hybrid_attn_every:
         cfg = dataclasses.replace(cfg, hybrid_attn_every=TP_F32_LAYERS)
     whole = arch == TRAIN_ARCH
@@ -3469,7 +3712,8 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
                             microbatches=TRAIN_MICRO if whole else 1,
                             warmup_steps=1, total_steps=TRAIN_STEPS)
     rows = TRAIN_BATCH if whole else TRAIN_ONE_BATCH
-    batches = [train_batch(cfg, device, rows, seed=s) for s in (0, 1)]
+    batches = [] if moe else [train_batch(cfg, device, rows, seed=s)
+                              for s in (0, 1)]
     prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
                            device=device)
     pe = serve_patch_embeds(cfg, device)
@@ -3478,15 +3722,16 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
     for m in (mesh, None):
         model = build_model(cfg, device, seed=0, mesh=m)
         _conditioned(model)
-        model.requires_grad_(True)
-        opt = adamw_init(model, tcfg.opt)
-        step = loop.make_train_step(model, tcfg, mesh=m)
         mets = []
-        for b in batches:
-            opt, met = step(opt, b)
-            mets.append((float(met["loss"]), float(met["grad_norm"])))
-        del opt, step
-        model.requires_grad_(False)
+        if not moe:
+            model.requires_grad_(True)
+            opt = adamw_init(model, tcfg.opt)
+            step = loop.make_train_step(model, tcfg, mesh=m)
+            for b in batches:
+                opt, met = step(opt, b)
+                mets.append((float(met["loss"]), float(met["grad_norm"])))
+            del opt, step
+            model.requires_grad_(False)
         res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe,
                     keep_logits=True)
         runs.append((mets, [res.prefill_logits] + res.decode_logits,
@@ -3494,15 +3739,17 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
         del model, res
         torch.cuda.empty_cache()
     (got_m, got_l, got_t), (want_m, want_l, want_t) = runs
-    gaps = {"loss": max(abs(a[0] - b[0]) / abs(b[0])
-                        for a, b in zip(got_m, want_m)),
-            "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
-                             for a, b in zip(got_m, want_m)),
-            "logits": max(((a - b).abs().max() / b.abs().max()).item()
+    gaps = {"logits": max(((a - b).abs().max() / b.abs().max()).item()
                           for a, b in zip(got_l, want_l))}
+    if not moe:
+        gaps["loss"] = max(abs(a[0] - b[0]) / abs(b[0])
+                           for a, b in zip(got_m, want_m))
+        gaps["grad_norm"] = max(abs(a[1] - b[1]) / abs(b[1])
+                                for a, b in zip(got_m, want_m))
     same = bool(torch.equal(got_t, want_t))
-    print(f"{tag} {arch} float32 control at {TP_F32_LAYERS} layers, full "
-          f"width: split against unsplit on this rank, 2 steps and a prefill "
+    print(f"{tag} {arch} float32 control at {cfg.n_layers} layers, full "
+          f"width: split against unsplit on this rank, "
+          f"{'' if moe else '2 steps and '}a prefill "
           f"with {TP_SERVE_STEPS} greedy decode steps: relative gaps "
           + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
           + f" (gate {TP_F32_RTOL:g}); greedy tokens equal: {same}")
@@ -3518,9 +3765,10 @@ def phase_tp(device, unsplit_losses: list[float],
     (``tp_worker``) share the card on a gloo group; qwen2-vl-2b's split
     bf16 losses are held to phase 16's unsharded ones
     (``unsplit_losses``), each scan family's to phase 15's
-    (``scan_losses``); -> the launches of their timed split steps and
-    serve runs, summed over the ranks and models (each rank resets its
-    counts just before each and reads them just after).
+    (``scan_losses``), and the ranks' greedy tokens to each other (the MoE
+    family's too); -> the launches of their timed split steps and serve
+    runs, summed over the ranks and models (each rank resets its counts
+    just before each and reads them just after).
     Two NCCL ranks cannot share one card (NCCL 2.28 refuses them:
     "ncclInvalidUsage ... Duplicate GPU detected : rank 0 and rank 1 both
     on CUDA device", at the first collective), so the group is gloo's,
@@ -3588,6 +3836,20 @@ def phase_tp(device, unsplit_losses: list[float],
                   f"processes share its SMs: no speed figure for the split)")
             for n in counts:
                 counts[n] += run["counts"][n]
+    for arch in TP_MOE_ARCHS:
+        runs = [res[arch] for res in results]
+        check(all(run["tokens"] == runs[0]["tokens"] for run in runs),
+              f"the ranks of one model group disagree on {arch}'s tokens")
+        for r, run in enumerate(runs):
+            layer = (f"; the split MoE layer at {run['moe_layer']:.3f} of "
+                     f"its gate" if r == 0 else "")
+            print(f"[tp] {arch} rank {r}: prefill {run['prefill_ms']:.3f} "
+                  f"ms, decode p50 {run['decode_p50_ms']:.3f} ms, serve peak "
+                  f"{run['serve_peak_gb']:.3f} GB; float32 control "
+                  f"{run['control']}{layer}; card: {smi} (two processes "
+                  f"share its SMs: no speed figure for the split)")
+            for n in counts:
+                counts[n] += run["counts"][n]
     print(f"[tp] phase done in {time.perf_counter() - t_start:.1f} s; "
           f"launches over both ranks {counts}")
     return counts
@@ -3596,27 +3858,42 @@ def phase_tp(device, unsplit_losses: list[float],
 # phase 18's dry-run runs, one process each: (name, arch, shape, extra CLI
 # flags, meshes); qwen2-vl-2b x train_4k on the 2x16x16 mesh shows the
 # batch split over pod x data, llama3-405b x decode_32k the q heads split
-# over kv heads that do not, zamba2-7b x decode_32k the Mamba2 split
+# over kv heads that do not, zamba2-7b x decode_32k the Mamba2 split,
+# mixtral-8x22b x decode_32k each expert's columns split (its 8 experts do
+# not divide 16) and deepseek-v3-671b x decode_32k the experts and MLA's
+# heads, both routing over the batch group
 DRYRUN_CELLS = (("rwkv6", "rwkv6-1.6b", "decode_32k", ["--both-meshes"],
                  {"16x16": 256, "2x16x16": 512}),
                 ("qwen2-vl", "qwen2-vl-2b", "train_4k", [], {"16x16": 256}),
                 ("qwen2-vl-pod", "qwen2-vl-2b", "train_4k", ["--multi-pod"],
                  {"2x16x16": 512}),
                 ("llama3", "llama3-405b", "decode_32k", [], {"16x16": 256}),
-                ("zamba2", "zamba2-7b", "decode_32k", [], {"16x16": 256}))
+                ("zamba2", "zamba2-7b", "decode_32k", [], {"16x16": 256}),
+                ("mixtral", "mixtral-8x22b", "decode_32k", [],
+                 {"16x16": 256}),
+                ("deepseek", MLA_ARCH, "decode_32k", [], {"16x16": 256}))
 LAUNCH_TIMEOUT_S = 600
-# the scan families' split decode rows at 16x16: (FLOPs a rank at most,
-# peak bytes at most, the split plan's line); whole on every rank they
-# read 1.951e11 FLOPs and 66.29 GiB (zamba2-7b), 2.319e10 (rwkv6-1.6b)
+# the split decode rows at 16x16: (FLOPs a rank at most, peak bytes at
+# most, the split plan's line); whole on every rank they read 1.951e11
+# FLOPs and 66.29 GiB (zamba2-7b), 2.319e10 (rwkv6-1.6b), 2.292e12 and
+# 269.21 GiB (mixtral-8x22b), 1.518e13 and 1267.92 GiB (deepseek-v3-671b);
+# split on the CPU the MoE rows read 1.539e11 and 24.62 GiB, 9.639e11 and
+# 97.65 GiB, gated at about twice that
 SPLIT_DECODE_GATES = {
     "zamba2-7b": (2.44e10, 12 * 2 ** 30,
                   "mamba2 split, attention split, mlp split, vocab split"),
     "rwkv6-1.6b": (2.9e9, None,
-                   "time mix split, channel mix split, vocab split")}
-# zamba2-7b x decode_32k's argument bytes at 16x16: the reference's own dry
-# run of the cell (``repro.launch.dryrun.run_cell`` on the CPU) reads the
+                   "time mix split, channel mix split, vocab split"),
+    "mixtral-8x22b": (3.1e11, 50 * 2 ** 30, "attention split, experts "
+                      "whole, expert mlp split, vocab split"),
+    MLA_ARCH: (1.93e12, 196 * 2 ** 30, "mla split, mlp split, experts "
+               "split, expert mlp whole, vocab split")}
+# the split decode rows' argument bytes at 16x16: the reference's own dry
+# run of each cell (``repro.launch.dryrun.run_cell`` on the CPU) reads the
 # same, and they come from the specs, which the split does not move
-ZAMBA2_DECODE_ARGUMENT = 3_182_791_172
+DECODE_ARGUMENT = {"zamba2-7b": 3_182_791_172,
+                   "mixtral-8x22b": 8_697_844_736,
+                   MLA_ARCH: 24_174_346_132}
 
 
 def smi_line() -> str:
@@ -3711,9 +3988,12 @@ def phase_launch_tooling(out_dir: str) -> None:
               and plan in outs[name],
               f"the split {arch} decode row is outside its gates or does "
               f"not say '{plan}': {row}")
-    zamba2 = by_cell[("zamba2-7b", "decode_32k", "16x16")]
-    check(zamba2["bytes_per_device"]["argument"] == ZAMBA2_DECODE_ARGUMENT,
-          f"zamba2-7b x decode_32k's argument bytes moved: {zamba2}")
+    for arch, argument in DECODE_ARGUMENT.items():
+        row = by_cell[(arch, "decode_32k", "16x16")]
+        check(row["bytes_per_device"]["argument"] == argument
+              and row["collective_bytes_total"] > 0,
+              f"{arch} x decode_32k's argument bytes moved, or it issued no "
+              f"collective: {row}")
     check(procs["cost"].returncode == 0, f"the cost run exited "
           f"{procs['cost'].returncode}:\n{outs['cost'][-3000:]}")
     with open(f"{out_dir}/cost.json") as f:

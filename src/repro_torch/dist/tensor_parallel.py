@@ -1,7 +1,8 @@
 """Tensor parallelism over the mesh's ``model`` axis: the port's
 counterpart of what GSPMD does to the reference's jitted step when
 ``default_rules`` shard a weight's ``heads``, ``kv_heads``, ``mlp``,
-``vocab``, ``inner``, ``heads_x_dim`` or ``embed_out`` dim over ``model``.
+``vocab``, ``inner``, ``heads_x_dim``, ``embed_out``, ``experts`` or
+``expert_mlp`` dim over ``model``.
 
 What splits is read from the rules, with no knob of its own: for each
 weight, ``spec_for(whole shape, logical axes, default_rules(multi_pod),
@@ -37,6 +38,21 @@ and whole on every model rank otherwise (``split_plan``):
   ``w_o`` row-parallel; its channel mix (``mlp``, ``embed_out``):
   ``w_ck`` column-parallel, ``w_cv`` row-parallel, ``w_cr`` by columns,
   the rank's columns of the output gathered (``gather_from``);
+- MLA (``heads``): ``wq_b`` and ``wkv_b`` column-parallel by heads,
+  ``wo`` row-parallel; ``wq_a``, ``wkv_a`` and the latent cache stay
+  whole, as the reference's specs keep them, and the split starts after
+  them: the q latent and the KV latents enter it (``copy_to``), so that
+  ``wq_a`` and ``wkv_a`` take whole, equal gradients on every rank;
+  prefill attends over the rank's heads, the absorbed decode reads the
+  rank's heads of ``wkv_b``;
+- the mixture of experts (``experts``, else ``expert_mlp``): each rank
+  keeps the ``w_gate``, ``w_up`` and ``w_down`` of its E / n experts or,
+  where the experts do not divide (mixtral-8x22b's 8 at 16), each
+  expert's columns of ``w_gate`` and ``w_up`` and rows of ``w_down``;
+  the routing runs replicated on every model rank, the tokens and gates
+  enter the experts through ``copy_to`` and each rank's partial outputs
+  are summed over ``model`` (``models.moe.moe_forward``); the shared
+  expert and the dense FFNs split by ``mlp`` as the MLP does;
 - the vocabulary: the embedding (and the codebook embeddings) cut by rows,
   each rank looking up its own rows, zeros for tokens outside them, summed
   over ``model``; the head cut by columns (a tied head follows the
@@ -63,8 +79,7 @@ are each rank's own.
 ``shard_model`` (``Model.shard``) cuts each split parameter to this rank's
 block (``params.cut_params``) after the model was made whole, so the
 seeded init and ``load_reference_params`` give every rank the unsplit
-model's values in its block, bit for bit.  The MoE and MLA families stay
-whole here: their ``experts`` and MLA head splits are later slices.
+model's values in its block, bit for bit.
 
 Collectives go through ``all_reduce`` and ``all_gather`` here, on any
 backend: NCCL across cards, or gloo, which takes CUDA tensors itself
@@ -89,7 +104,9 @@ MODEL = "model"
 @dataclasses.dataclass(frozen=True, eq=False)
 class ModelGroup:
     """The ``model`` axis of a mesh as one rank sees it: its process
-    group, its size and this rank's coordinate on it."""
+    group, its size and this rank's coordinate on it (or, for the MoE
+    routing's ``BatchRouting``, the batch group: the functions below take
+    either)."""
     group: object
     size: int
     rank: int
@@ -300,6 +317,28 @@ class AttentionSplit(MlpSplit):
 
 
 @dataclasses.dataclass(eq=False)
+class MlaSplit(RegionSplit):
+    """An MLA block whose heads split over ``model`` (``MLA.tp``): the q
+    latent and the KV latents enter (``enter``), ``wq_b``, ``wkv_b`` and
+    ``wo`` are this rank's heads."""
+
+
+@dataclasses.dataclass(eq=False)
+class ExpertSplit(RegionSplit):
+    """A mixture of experts split over ``model`` (``MoE.tp``): by experts
+    where ``by_experts`` (each rank keeps E / n), else by each expert's
+    ``expert_mlp`` columns."""
+    by_experts: bool = True
+
+    def experts(self, n_experts: int) -> tuple[int, int]:
+        """(the first, the number of) the experts this rank runs."""
+        if not self.by_experts:
+            return 0, n_experts
+        n = n_experts // self.mg.size
+        return self.mg.rank * n, n
+
+
+@dataclasses.dataclass(eq=False)
 class MambaSplit(RegionSplit):
     """A Mamba2 block whose heads split over ``model`` (``Mamba2.tp``):
     its parameters cut by ``Mamba2``'s segments, B and C gathered after
@@ -410,11 +449,13 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # -------------------------------- plan -------------------------------- #
 # each region's weights, by leaf name: the first leaf found decides (the
 # rest share its dim), and a region whose leaves the model lacks stays
-# whole.  ``heads`` are the attention's q heads, or RWKV6's heads (``u``)
-REGIONS = {"heads": ("attn.wq", "time.u"), "kv_heads": ("attn.wk",),
-           "mlp": ("ffn.w_gate", "time.w_ck"), "vocab": ("embedding",),
-           "inner": ("mixer.w_in",), "heads_x_dim": ("time.w_r",),
-           "embed_out": ("time.w_cr",)}
+# whole.  ``heads`` are the attention's q heads (MLA's ``wq_b``), or
+# RWKV6's heads (``u``)
+REGIONS = {"heads": ("attn.wq", "attn.wq_b", "time.u"),
+           "kv_heads": ("attn.wk",), "mlp": ("ffn.w_gate", "time.w_ck"),
+           "experts": ("moe.w_gate",), "expert_mlp": ("moe.w_gate",),
+           "vocab": ("embedding",), "inner": ("mixer.w_in",),
+           "heads_x_dim": ("time.w_r",), "embed_out": ("time.w_cr",)}
 # what runs split, by family: (name, the regions that must all split)
 RUNS = {"dense": (("attention", ("heads",)), ("mlp", ("mlp",)),
                   ("vocab", ("vocab",))),
@@ -422,21 +463,24 @@ RUNS = {"dense": (("attention", ("heads",)), ("mlp", ("mlp",)),
                    ("mlp", ("mlp",)), ("vocab", ("vocab",))),
         "rwkv6": (("time mix", ("heads_x_dim", "heads")),
                   ("channel mix", ("mlp", "embed_out")),
-                  ("vocab", ("vocab",)))}
+                  ("vocab", ("vocab",))),
+        "moe": (("attention", ("heads",)), ("experts", ("experts",)),
+                ("expert mlp", ("expert_mlp",)), ("vocab", ("vocab",))),
+        "mla": (("mla", ("heads",)), ("mlp", ("mlp",)),
+                ("experts", ("experts",)), ("expert mlp", ("expert_mlp",)),
+                ("vocab", ("vocab",)))}
 
 
 @dataclasses.dataclass
 class SplitPlan:
     """What runs split over the ``model`` axis of ``n`` ranks: each
     region's weight dim (``dims``) and whether it runs split (``split``:
-    ``spec_for`` shards it, and ``why`` holds no reason to keep it whole);
-    ``family`` says why a model stays whole.  ``specs``: each parameter's
-    spec on its whole shape; ``report``: the ShardingReport of those
-    specs."""
+    ``spec_for`` shards it, and ``why`` holds no reason to keep it whole).
+    ``specs``: each parameter's spec on its whole shape; ``report``: the
+    ShardingReport of those specs."""
     n: int
     split: dict[str, bool]
     dims: dict[str, int]
-    family: str | None
     specs: dict
     report: ShardingReport
     kind: str = "dense"
@@ -444,7 +488,7 @@ class SplitPlan:
 
     @property
     def any(self) -> bool:
-        return self.family is None and any(self.split.values())
+        return any(self.split.values())
 
     def runs(self) -> dict[str, bool]:
         """{what runs (attention, mlp, mamba2, time mix, ...): split}."""
@@ -452,9 +496,6 @@ class SplitPlan:
                 for name, regions in RUNS[self.kind]}
 
     def describe(self) -> str:
-        if self.family is not None:
-            return (f"model axis {self.n}: whole ({self.family}: its "
-                    f"split is a later slice)")
         parts = []
         for region in REGIONS:
             if region not in self.dims:
@@ -477,28 +518,25 @@ def _model_dim(spec) -> int | None:
     return None
 
 
-def _in_scope(model) -> str | None:
-    """None for a model whose split this module runs, else its family."""
-    cfg = model.cfg
-    if cfg.n_experts:
-        return "moe"
-    if cfg.attn_type == "mla":
-        return "mla"
-    return None
-
-
 def _kind(cfg) -> str:
     if cfg.rwkv:
         return "rwkv6"
-    return "hybrid" if cfg.family in ("ssm", "hybrid") else "dense"
+    if cfg.family in ("ssm", "hybrid"):
+        return "hybrid"
+    if cfg.attn_type == "mla":
+        return "mla"
+    return "moe" if cfg.n_experts else "dense"
 
 
-def _whole_for_heads(cfg, kind: str, n: int, split: dict) -> dict[str, str]:
+def _kept_whole(cfg, kind: str, n: int, split: dict) -> dict[str, str]:
     """The regions that ``spec_for`` shards but whose heads do not divide
     over ``n`` ranks, with the reason: Mamba2 needs its heads and its B/C
     columns to, RWKV6's time mix its heads, and its channel mix both its
-    ``mlp`` and ``embed_out`` dims."""
+    ``mlp`` and ``embed_out`` dims; and ``expert_mlp`` where it would
+    divide but the experts take ``model`` (one mesh axis a tensor)."""
     why = {}
+    if split.get("experts"):
+        why["expert_mlp"] = "the experts take model"
     if kind == "hybrid" and split.get("inner"):
         H, bc = cfg.ssm_heads, 2 * cfg.ssm_state
         if H % n or bc % n:
@@ -518,8 +556,9 @@ def _whole_for_heads(cfg, kind: str, n: int, split: dict) -> dict[str, str]:
 def split_plan(model, mesh) -> SplitPlan:
     """Which regions of ``model`` split over ``mesh``'s ``model`` axis, by
     ``spec_for`` of every parameter's whole shape under
-    ``default_rules("pod" in the mesh)``, and the heads' divisibility for
-    the scan families (``_whole_for_heads``)."""
+    ``default_rules("pod" in the mesh)``, the heads' divisibility for the
+    scan families, and ``expert_mlp`` left whole where the experts split
+    (``_kept_whole``)."""
     sizes = axis_sizes(mesh)
     n = sizes.get(MODEL, 1)
     rules = default_rules("pod" in sizes)
@@ -538,20 +577,19 @@ def split_plan(model, mesh) -> SplitPlan:
         dims[region] = whole_shape(p)[axis]
         split[region] = _model_dim(specs[name]) == axis
     kind = _kind(model.cfg)
-    why = _whole_for_heads(model.cfg, kind, n, split)
+    why = _kept_whole(model.cfg, kind, n, split)
     for region in why:
         split[region] = False
-    return SplitPlan(n, split, dims, _in_scope(model), specs, report, kind,
-                     why)
+    return SplitPlan(n, split, dims, specs, report, kind, why)
 
 
 def shard_model(model, mesh):
     """Cut ``model`` (made whole, filled or not) to this rank's blocks of
     every weight of a region its ``split_plan`` splits, and attach the
-    regions that run split (``GQA.tp``, ``FFN.tp``, ``Mamba2.tp``,
-    ``Rwkv6.tp``, ``Model.tp``); returns ``model``.  A model already cut,
-    or a plan that splits nothing (one model rank, or a family this
-    module leaves whole), is left as it is."""
+    regions that run split (``GQA.tp``, ``MLA.tp``, ``FFN.tp``,
+    ``MoE.tp``, ``Mamba2.tp``, ``Rwkv6.tp``, ``Model.tp``); returns
+    ``model``.  A model already cut, or a plan that splits nothing (one
+    model rank), is left as it is."""
     if getattr(model, "split_plan", None) is not None and model.split_plan.any:
         raise ValueError("the model is split already")
     plan = split_plan(model, mesh)
@@ -570,12 +608,21 @@ def shard_model(model, mesh):
     cut_params(model, cuts)
     cfg = model.cfg
     runs = plan.runs()
+    experts = runs.get("experts") or runs.get("expert mlp")
     for layer in model.attention_layers():
-        if runs["attention"]:
+        if runs.get("attention"):
             layer.attn.tp = AttentionSplit(mg, None if plan.split[
                 "kv_heads"] else _kv_index(cfg, mg))
-        if runs["mlp"]:
+        if runs.get("mla"):
+            layer.attn.tp = MlaSplit(mg)
+        if hasattr(layer, "ffn") and runs.get("mlp"):
             layer.ffn.tp = MlpSplit(mg)
+        if hasattr(layer, "moe"):
+            if experts:
+                layer.moe.tp = ExpertSplit(mg, runs["experts"])
+            shared = getattr(layer.moe, "shared", None)
+            if shared is not None and hasattr(shared.w_gate, "cut"):
+                shared.tp = MlpSplit(mg)
     if runs.get("mamba2"):
         for layer in model.layers:
             layer.mixer.tp = MambaSplit(mg)
@@ -621,9 +668,9 @@ def model_group(model) -> ModelGroup | None:
     return None
 
 
-__all__ = ["AttentionSplit", "MambaSplit", "MlpSplit", "ModelGroup",
-           "RegionSplit", "RwkvSplit", "SplitPlan", "VocabSplit",
-           "all_gather", "all_reduce", "copy_to", "gather_cut",
+__all__ = ["AttentionSplit", "ExpertSplit", "MambaSplit", "MlaSplit",
+           "MlpSplit", "ModelGroup", "RegionSplit", "RwkvSplit", "SplitPlan",
+           "VocabSplit", "all_gather", "all_reduce", "copy_to", "gather_cut",
            "gather_from", "gather_shared", "local_lookup", "model_group",
            "reduce_from", "shard_model", "split_plan", "split_rms_norm",
            "sum_partial", "vocab_cross_entropy"]

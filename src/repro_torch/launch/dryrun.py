@@ -30,16 +30,19 @@ A row's numbers (the reference's keys):
   ``degraded_shardings`` is the count of dims those shardings replicate.
 - ``flops_total``: ``FlopCounterMode`` over the step the port runs on one
   rank: the model split over ``model`` where the rules split it
-  (``Model.shard``, ``dist.tensor_parallel``: the dense, vision-language,
-  audio, hybrid and RWKV6 families' heads, MLP, Mamba2 and RWKV6 blocks
-  and vocabulary; MoE and MLA whole), on the rank's block of the batch
-  over ``pod`` x ``data`` (``train.loop.make_train_step``'s sharded step
-  for ``train``; ``prefill``/``decode`` on the rank's block, the cache
-  split in kv, ssm or WKV heads where they split).  The reference's
-  number is XLA's SPMD partition of one program over the mesh, which also
-  splits ``embed`` over ``data`` and the families this port still runs
-  whole; the two are not expected to agree.  ``FlopCounterMode`` counts the products (matmuls,
-  attention), not the elementwise work XLA also counts.
+  (``Model.shard``, ``dist.tensor_parallel``: heads, kv heads, MLP,
+  Mamba2 and RWKV6 blocks, experts or each expert's columns, MLA's heads
+  and the vocabulary), on the rank's block of the batch over ``pod`` x
+  ``data`` (``train.loop.make_train_step``'s sharded step for ``train``;
+  ``prefill``/``decode`` on the rank's block, the cache split in kv, ssm
+  or WKV heads where they split), a mixture of experts routing over the
+  whole batch (``models.moe.routed_over`` the batch group, as the
+  sharded step routes).  The reference's number is XLA's SPMD partition
+  of one program over the mesh, which also splits ``embed`` over
+  ``data`` (the port gathers weights sharded over ``data`` whole for
+  compute); the two are not expected to agree.  ``FlopCounterMode``
+  counts the products (matmuls, attention), not the elementwise work XLA
+  also counts.
 - ``bytes_accessed``: the bytes every op of the step reads and writes (its
   tensor arguments and outputs; views move none): an unfused count.
 - ``collective_bytes``: the output bytes of every collective the step
@@ -72,18 +75,20 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import all_archs, get_config
 from repro_torch.dist.sharding import (ShardingReport, axis_sizes,
-                                       batch_sharding, default_rules,
-                                       tree_shardings)
+                                       batch_block, batch_sharding,
+                                       default_rules, tree_shardings)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import (LONG_CONTEXT_OK, SHAPES,
                                        TRAIN_MICROBATCHES, applicable_cells,
                                        input_specs)
 from repro_torch.models import layers
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import routed_over
 from repro_torch.models.params import (paths_from_tree, reference_path,
                                        whole_shape)
 from repro_torch.optim import adamw_init
-from repro_torch.train.loop import (TrainConfig, make_train_step,
+from repro_torch.train.loop import (TrainConfig, _batch_group,
+                                    batch_routing, make_train_step,
                                     opt_state_axes)
 
 # op name (without its overload) -> the reference's HLO collective key
@@ -330,13 +335,16 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
             argument += _shard_bytes(whole_cache, tree_shardings(
                 whole_cache, model.cache_axes(), mesh, rules, report))
             block = {k: v[:rows] for k, v in specs.items()}
+            routing = batch_routing(_batch_group(mesh), *batch_block(
+                mesh, shape.global_batch))
 
             @torch.no_grad()
             def step():
-                if shape.kind == "prefill":
-                    return model.prefill(block["tokens"], cache,
-                                         block.get("patch_embeds"))
-                return model.decode(block["tokens"], cache)
+                with routed_over(model, routing):
+                    if shape.kind == "prefill":
+                        return model.prefill(block["tokens"], cache,
+                                             block.get("patch_embeds"))
+                    return model.decode(block["tokens"], cache)
         t_build = time.perf_counter() - t0
         live.mark()
         base, accessed0 = live.live, live.accessed

@@ -189,10 +189,13 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
 class MLA(nn.Module):
     """wq_a (d, q_lora), wq_b (q_lora, H, dn + dr), wkv_a (d, kv_lora +
     dr), wkv_b (kv_lora, H, dn + dv), wo (H, dv, d): the reference's
-    ``mla_init`` leaves."""
+    ``mla_init`` leaves.  ``tp``: None, or where the heads split over a
+    mesh's ``model`` axis (``dist.tensor_parallel.MlaSplit``), this rank's
+    heads of ``wq_b``, ``wkv_b`` and ``wo``."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
+        self.tp = None
         d, H = cfg.d_model, cfg.n_heads
         qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
         dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
@@ -214,8 +217,12 @@ def _mla_query(p: MLA, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor):
     """einsum('bsd,dr,rhk->bshk') as two products (x wq_a first, rounded
     to x's dtype as the reference's pairwise einsum rounds it), split into
-    (q_nope (B, S, H, dn), q_rope (B, S, H, dr) roped)."""
-    q = _proj(x @ p.wq_a, p.wq_b)
+    (q_nope (B, S, H, dn), q_rope (B, S, H, dr) roped).  Split over
+    ``model``, the whole q latent enters the rank's heads of ``wq_b``."""
+    q_lat = x @ p.wq_a
+    if p.tp is not None:
+        q_lat = p.tp.enter(q_lat)
+    q = _proj(q_lat, p.wq_b)
     dn = cfg.qk_nope_head_dim
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -234,10 +241,14 @@ def _mla_qkv(p: MLA, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, latents=None):
     """q, k (B, S, H, dn + dr) and v (B, S, H, dv): k's RoPE half is the
     shared k_rope broadcast over the heads.  ``latents``: ``_mla_latents``
-    of the same inputs, when the caller has them."""
-    dn, H = cfg.qk_nope_head_dim, cfg.n_heads
+    of the same inputs, when the caller has them.  Split over ``model``,
+    H is the rank's heads, and the whole latents enter them."""
+    dn = cfg.qk_nope_head_dim
     q_nope, q_rope = _mla_query(p, x, cfg, positions)
     c_kv, k_rope = latents or _mla_latents(p, x, cfg, positions)
+    if p.tp is not None:
+        c_kv, k_rope = p.tp.enter(c_kv), p.tp.enter(k_rope)
+    H = q_nope.shape[2]
     kv = _proj(c_kv, p.wkv_b)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k_rope_b = k_rope[:, :, None].expand(-1, -1, H, -1)
@@ -281,10 +292,11 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     """Single-token decode with the absorbed matrices (cache updated in
     place): the query is projected into the latent space through wkv_b's
     key half, attends to the latent cache directly in float32, and the
-    attended latent goes through wkv_b's value half.  Plain torch on every
-    device, as in the reference.  The slot index stays on the device and is
-    clamped to the cache, as the reference's ``dynamic_update_slice``
-    clamps it."""
+    attended latent goes through wkv_b's value half.  Split over
+    ``model``, the rank's heads of wkv_b and wo, the cache whole.  Plain
+    torch on every device, as in the reference.  The slot index stays on
+    the device and is clamped to the cache, as the reference's
+    ``dynamic_update_slice`` clamps it."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope = _mla_query(p, x, cfg, positions)    # (B, 1, H, .)
     c_kv, k_rope = _mla_latents(p, x, cfg, positions)    # (B, 1, kvr/dr)

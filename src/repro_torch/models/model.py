@@ -37,8 +37,8 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import (InitCtx, init_params, param_axes,
-                                       whole_shape)
+from repro_torch.models.params import (InitCtx, init_params, materialize,
+                                       param_axes, whole_shape)
 
 
 class MambaLayer(nn.Module):
@@ -116,9 +116,12 @@ class Model(nn.Module):
     ``device="cpu"``).  Parameters are allocated uninitialised; ``init``
     fills them from a seed, and ``params.load_reference_params`` from the
     JAX package's tree.  ``cfg.use_kernel`` None resolves to the kernels on
-    CUDA."""
+    CUDA.  With ``on_meta`` the parameters are made on the meta device
+    (the model still belongs to ``device``), to be cut by ``shard`` and
+    made on ``device`` by ``params.materialize`` (``build_model``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 on_meta: bool = False):
         super().__init__()
         dev = resolve_device(device)
         cfg = dataclasses.replace(
@@ -129,7 +132,8 @@ class Model(nn.Module):
         # of every region's (``shard``); None: whole
         self.tp = None
         self.split_plan = None
-        ctx = InitCtx(cfg.dtype, dev)
+        alloc = torch.device("meta") if on_meta else dev
+        ctx = InitCtx(cfg.dtype, alloc)
         # the reference's ``embed`` leaf (``embed`` is the method here);
         # with codebooks it and ``head`` are kept unread, as the reference
         # keeps them
@@ -147,9 +151,9 @@ class Model(nn.Module):
                                      (None, "embed", "vocab"), scale=0.02)
         # each stack's leaves take std 1/sqrt(that stack's depth)
         n = cfg.n_layers - self._first_dense
-        stack = InitCtx(cfg.dtype, dev, stack=n)
+        stack = InitCtx(cfg.dtype, alloc, stack=n)
         if self._first_dense:
-            first = InitCtx(cfg.dtype, dev, stack=self._first_dense)
+            first = InitCtx(cfg.dtype, alloc, stack=self._first_dense)
             self.dense_layers = nn.ModuleList(
                 [DenseLayer(cfg, first) for _ in range(self._first_dense)])
         if cfg.rwkv:
@@ -171,14 +175,13 @@ class Model(nn.Module):
         return self
 
     def shard(self, mesh) -> "Model":
-        """Split the dense, vision-language, audio, hybrid and RWKV6
-        families over ``mesh``'s ``model`` axis where the reference's rules
-        shard their weights (``dist.tensor_parallel.shard_model``): each
-        rank keeps its block of every split weight, of a model filled
-        whole (``init`` after ``shard`` draws whole tensors too, and
-        ``load_reference_params`` cuts the reference's).  The MoE and MLA
-        families, and a mesh without a ``model`` axis of more than one
-        rank, are left whole.  Returns the model."""
+        """Split the model over ``mesh``'s ``model`` axis where the
+        reference's rules shard its weights
+        (``dist.tensor_parallel.shard_model``): each rank keeps its block
+        of every split weight, of a model filled whole (``init`` after
+        ``shard`` draws whole tensors too, and ``load_reference_params``
+        cuts the reference's).  A mesh without a ``model`` axis of more
+        than one rank leaves it whole.  Returns the model."""
         from repro_torch.dist.tensor_parallel import shard_model
         return shard_model(self, mesh)
 
@@ -507,10 +510,14 @@ def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0,
                 mesh=None) -> Model:
     """A model on ``device``, filled from ``seed`` (None: left
     uninitialised, for ``load_reference_params``); with ``mesh``, split
-    over its ``model`` axis (``Model.shard``) and filled after, as whole."""
-    model = Model(cfg, device)
-    if mesh is not None:
-        model.shard(mesh)
+    over its ``model`` axis (``Model.shard``) and filled after, as whole.
+    A split model is made on the meta device and cut there, so that a
+    rank never holds the whole model's parameters, only its blocks."""
+    if mesh is None:
+        model = Model(cfg, device)
+    else:
+        model = Model(cfg, device, on_meta=True).shard(mesh)
+        materialize(model, model.device)
     return model if seed is None else model.init(seed)
 
 

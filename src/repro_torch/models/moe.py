@@ -5,15 +5,26 @@ experts (``repro.models.moe``).
 The expert products are batched matrix products over the (E, C, d) dispatch
 buffer, as the reference's einsums are; no kernel of the port is on this
 path.
+
+A batch split over ranks (the sharded train step's block of each
+microbatch, the dry run's block of a prefill or decode batch) routes as
+the reference's program over the whole batch does (``BatchRouting``,
+``routed_over``): the capacity of the whole batch, a pair's place in its
+expert's queue counted over every lower batch rank, and the load-balance
+loss of the whole batch.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.tensor_parallel import (ModelGroup, all_gather,
+                                              sum_partial)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import swiglu
 from repro_torch.models.params import InitCtx
@@ -48,10 +59,16 @@ def ffn_forward(p: FFN, x: torch.Tensor) -> torch.Tensor:
 class MoE(nn.Module):
     """router (d, E); w_gate, w_up (E, d, f); w_down (E, f, d); and, with
     ``cfg.n_shared_experts``, a ``shared`` SwiGLU of width
-    ``moe_d_ff * n_shared_experts``."""
+    ``moe_d_ff * n_shared_experts``.  ``tp``: None, or where the
+    ``experts`` or ``expert_mlp`` dim splits over a mesh's ``model`` axis
+    (``dist.tensor_parallel.ExpertSplit``), this rank's experts or each
+    expert's columns.  ``batch``: None, or the split of the batch it
+    routes over ranks (``BatchRouting``, set by ``routed_over``)."""
 
     def __init__(self, cfg: ModelConfig, ctx: InitCtx):
         super().__init__()
+        self.tp = None
+        self.batch = None
         d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
         self.router = ctx.param("router", (d, E), ("embed", None))
         self.w_gate = ctx.param("w_gate", (E, d, f),
@@ -66,6 +83,34 @@ class MoE(nn.Module):
 
 def moe_init(cfg: ModelConfig, ctx: InitCtx) -> MoE:
     return MoE(cfg, ctx)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchRouting:
+    """A routing batch split along its rows into ``count`` equal blocks
+    over the ranks of ``group`` (the batch group: its process group, its
+    size and this rank's place in it), this rank holding block ``index``.
+    Group rank j holds block j % ``count``: the blocks lie in group-rank
+    order, as ``sharding.batch_block`` lays rows over ``pod`` x ``data``
+    (pod outer), and where the rows split over ``data`` alone the ``pod``
+    coordinates repeat them."""
+    group: ModelGroup
+    index: int
+    count: int
+
+
+@contextlib.contextmanager
+def routed_over(model: nn.Module, routing: BatchRouting | None):
+    """Every ``MoE`` of ``model`` routes over ``routing``'s whole batch
+    while the block runs (nothing changes with None)."""
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    for m in moes:
+        m.batch = routing
+    try:
+        yield
+    finally:
+        for m in moes:
+            m.batch = None
 
 
 def expert_capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -111,11 +156,39 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     is discarded (Switch-style drops).  Every expert runs over its C rows,
     empty ones included; outputs come back weighted by the router and are
     summed per token.  ``aux`` is the Switch load-balance loss.
+
+    With ``p.batch`` (``BatchRouting``) ``x`` is this rank's block of a
+    batch of ``count`` blocks, routed as the whole batch is: C is the
+    whole batch's capacity; a pair's place in its expert's queue is its
+    place here plus that expert's pairs on every lower block (one
+    all-gather of the (E,) counts: the reference's stable sort orders the
+    pairs block-major); ``aux`` is the whole batch's, its router means
+    summed over the batch group both ways (``sum_partial``), so that
+    after the step's average over that group the router takes the
+    reference's gradient of it once.  No expert keeps more than
+    ``min(C, T)`` of this block's T tokens (a token takes an expert at
+    most once), so the buffer holds that many rows an expert.
+
+    With ``p.tp`` (``ExpertSplit``) the routing runs replicated on every
+    model rank (the router is whole and the tokens are replicated over
+    ``model``, so every rank makes the same choices and drops); the
+    tokens and the gates enter the split experts through ``copy_to``;
+    each rank runs its experts' rows of the buffer (``experts`` split) or
+    every expert's products at its columns (``expert_mlp`` split) and
+    combines its partial outputs, which are summed over ``model``
+    (``reduce_from``).  The load-balance loss stays replicated and its
+    gradient is not summed over ``model``.  The reference's GSPMD program
+    moves tokens by all-to-alls to the ranks of their experts; with the
+    activations replicated over ``model`` no all-to-all is needed, and
+    the sums are the same.
     """
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     T = B * S
-    C = expert_capacity(T, cfg)
+    route = p.batch
+    T_all = T * route.count if route is not None else T
+    C = expert_capacity(T_all, cfg)
+    rows = C if route is None else min(C, T)     # buffer rows an expert
     xt = x.reshape(T, d)
     probs, topv, topi = _route(p, xt, cfg)
 
@@ -127,12 +200,23 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     counts = expert_counts(se, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=x.device) - starts[se]
-    slot = torch.where(pos < C, se * C + pos, E * C)     # E*C: overflow row
+    if route is None:
+        keep = pos < C
+    else:
+        parts = all_gather(counts[None], route.group, 0)     # (ranks, E)
+        keep = pos + parts[:route.index].sum(0)[se] < C
+    tp = p.tp
+    lo, n_e = (0, E) if tp is None else tp.experts(E)
+    if n_e != E:                   # this rank's experts [lo, lo + n_e)
+        keep = keep & (se >= lo) & (se < lo + n_e)
+    slot = torch.where(keep, (se - lo) * rows + pos, n_e * rows)  # overflow
+    if tp is not None:
+        xt, sw = tp.enter(xt), tp.enter(sw)
     # every real slot is written at most once; the overflow row takes
     # whichever of its duplicates lands last
-    buf = x.new_zeros((E * C + 1, d))
+    buf = x.new_zeros((n_e * rows + 1, d))
     buf[slot] = xt[st]
-    xbuf = buf[:E * C].view(E, C, d)
+    xbuf = buf[:n_e * rows].view(n_e, rows, d)
 
     # ---- expert compute (batched over the expert axis) --------------- #
     gate = torch.bmm(xbuf, p.w_gate)
@@ -140,7 +224,7 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
         # autograd keeps what the backward reads: new arrays, as in the
         # reference; a dropped pair's output is zero and takes no gradient
         h = F.silu(gate) * torch.bmm(xbuf, p.w_up)
-        ybuf = torch.cat([torch.bmm(h, p.w_down).reshape(E * C, d),
+        ybuf = torch.cat([torch.bmm(h, p.w_down).reshape(n_e * rows, d),
                           buf.new_zeros((1, d))])
         y_tok = ybuf[slot] * sw[:, None].to(buf.dtype)
     else:
@@ -152,19 +236,38 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
         h.mul_(torch.bmm(xbuf, p.w_up))
         torch.bmm(h, p.w_down, out=xbuf)
         del h, gate
-        buf[E * C].zero_()             # a dropped pair's output is zero
+        buf[n_e * rows].zero_()        # a dropped pair's output is zero
         y_tok = buf[slot]
         y_tok.mul_(sw[:, None].to(buf.dtype))
 
     # ---- combine ------------------------------------------------------ #
     y = x.new_zeros((T, d)).index_add_(0, st, y_tok)
+    if tp is not None:
+        y = tp.exit(y)
 
     out = y.reshape(B, S, d)
     if hasattr(p, "shared"):
         out = out + ffn_forward(p.shared, x)
-    me = expert_counts(flat_e, E).float() / (T * k)
-    aux = E * torch.sum(me * probs.mean(0))
-    return out, aux
+    if route is None:
+        me = expert_counts(flat_e, E).float() / (T * k)
+    else:
+        me = parts[:route.count].sum(0).float() / (T_all * k)
+    return out, load_balance_loss(probs, me, route)
+
+
+def load_balance_loss(probs: torch.Tensor, me: torch.Tensor,
+                      route: BatchRouting | None) -> torch.Tensor:
+    """The Switch load-balance loss E * sum(me * ce) of the router
+    probabilities ``probs`` (T, E) and each expert's share of the pairs
+    ``me`` (E,), ``ce`` the mean of ``probs`` over the batch: with
+    ``route``, over its whole batch, the sum summed over the batch group
+    both ways (each block counted size / count times there)."""
+    if route is None:
+        ce = probs.mean(0)
+    else:
+        ce = sum_partial(probs.sum(0), route.group) / (
+            probs.shape[0] * route.group.size)
+    return probs.shape[1] * torch.sum(me * ce)
 
 
 def moe_forward_oracle(p: MoE, x: torch.Tensor, cfg: ModelConfig

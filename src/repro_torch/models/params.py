@@ -160,10 +160,36 @@ def cut_params(module: nn.Module, cuts: dict[str, tuple]) -> None:
         new = nn.Parameter(
             _take(old, dim, cut_ranges(cut, old.shape[dim])).clone(),
             requires_grad=old.requires_grad)
-        new.init_rule, new.logical_axes = old.init_rule, old.logical_axes
-        if hasattr(old, "segments"):
-            new.segments = old.segments
+        _keep_records(old, new)
         new.whole_shape, new.cut = tuple(old.shape), tuple(cut)
+        setattr(owner, leaf, new)
+
+
+# what ``InitCtx.param`` and ``cut_params`` record on a parameter
+_RECORDS = ("init_rule", "logical_axes", "segments", "whole_shape", "cut")
+
+
+def _keep_records(old, new) -> None:
+    for key in _RECORDS:
+        if hasattr(old, key):
+            setattr(new, key, getattr(old, key))
+
+
+@torch.no_grad()
+def materialize(module: nn.Module, device) -> None:
+    """Replace each parameter of ``module`` on the meta device by an
+    uninitialised one of its shape and dtype on ``device``, keeping what
+    ``InitCtx.param`` and ``cut_params`` recorded on it and its
+    ``requires_grad``."""
+    for name, old in list(module.named_parameters()):
+        if old.device.type != "meta":
+            continue
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name) if owner_name else module
+        new = nn.Parameter(torch.empty(old.shape, dtype=old.dtype,
+                                       device=device),
+                           requires_grad=old.requires_grad)
+        _keep_records(old, new)
         setattr(owner, leaf, new)
 
 

@@ -29,9 +29,10 @@ from repro_torch.dist.sharding import (axis_sizes, batch_block,
                                        default_rules, gather_whole,
                                        place_tree, tree_map_paths,
                                        tree_shardings)
-from repro_torch.dist.tensor_parallel import MODEL, model_group
+from repro_torch.dist.tensor_parallel import MODEL, ModelGroup, model_group
 from repro_torch.dist.tensor_parallel import all_reduce as tp_all_reduce
 from repro_torch.models.model import Model, loss_fn
+from repro_torch.models.moe import BatchRouting, routed_over
 from repro_torch.models.params import whole_shape
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule)
@@ -115,8 +116,14 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
       (``("pod", "data")`` where the mesh has ``pod``, else ``("data",)``,
       outer axes dropped where the rows do not divide), and each rank
       takes its own (``sharding.batch_block``: the rows the reference's
-      ``batch_sharding`` gives it); the ranks of one batch coordinate (a
-      ``model`` axis) compute the same block;
+      ``batch_sharding`` gives it) of each microbatch: the global batch
+      splits into microbatches first, as the reference's step splits it
+      (``rank_rows``); the ranks of one batch coordinate (a ``model``
+      axis) compute the same block;
+    - a mixture of experts routes each microbatch as the reference's
+      program over the whole microbatch does (``models.moe.routed_over``
+      the batch group: the whole microbatch's capacity, drops and
+      load-balance loss);
     - a model split over ``model`` (``Model.shard``) computes its block's
       gradients tensor-parallel, each rank its own block of every split
       parameter's gradient (``dist.tensor_parallel``); a model left whole
@@ -194,8 +201,10 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     def sharded(opt_state: dict, batch: dict):
         rows = next(iter(batch.values())).shape[0]
         index, count = batch_block(mesh, rows)
-        local = {k: v.chunk(count)[index] for k, v in batch.items()}
-        loss, metrics, grads = accumulate_grads(model, local, n_micro)
+        local = {k: rank_rows(v, n_micro, index, count)
+                 for k, v in batch.items()}
+        with routed_over(model, batch_routing(group, index, count)):
+            loss, metrics, grads = accumulate_grads(model, local, n_micro)
         flat, spec = flatten_grads(grads)
         del grads
         flat = bucketed_allreduce(flat, plan, group).div_(n_batch)
@@ -216,6 +225,34 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     sharded.place = lambda opt_state: place_tree(opt_state, o_shard,
                                                  done=done)
     return sharded
+
+
+def rank_rows(t: torch.Tensor, n_micro: int, index: int, count: int
+              ) -> torch.Tensor:
+    """This rank's rows of a global batch ``t`` for ``n_micro``
+    microbatches: block ``index`` of ``count`` of each of the ``n_micro``
+    microbatches the reference's step splits ``t`` into, in microbatch
+    order, so that ``accumulate_grads``'s split of them gives microbatch
+    m's block as its m-th part."""
+    rows = t.shape[0]
+    if rows % (n_micro * count):
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{n_micro} microbatches of {count} equal blocks")
+    if n_micro == 1:
+        return t.chunk(count)[index]
+    return t.unflatten(0, (n_micro, count, -1))[:, index].flatten(0, 1)
+
+
+def batch_routing(group, index: int, count: int) -> BatchRouting | None:
+    """The MoE routing over a batch split into ``count`` blocks over the
+    batch group ``group`` (``_batch_group``), this rank holding block
+    ``index``; None where the rows do not split (``count`` 1: every rank
+    holds the whole batch)."""
+    if count == 1:
+        return None
+    pg = process_group(group)
+    mg = ModelGroup(pg, dist.get_world_size(pg), dist.get_rank(pg))
+    return BatchRouting(mg, index, count)
 
 
 def _batch_group(mesh):

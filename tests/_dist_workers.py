@@ -389,10 +389,13 @@ def _tp_steps(case: dict, mesh, tag: str) -> None:
 
 def _tp_serve(case: dict, mesh, tag: str) -> None:
     """Prefill and 4 greedy decode steps on the rank's block of the
-    prompts (``batch_block``), the model split: the gathered last-position
+    prompts (``batch_block``; a mixture of experts routed over the whole
+    batch, ``routed_over``), the model split: the gathered last-position
     logits within the case's bound (``logits_tol`` of their scale) of the
     reference's, and every greedy token equal."""
     from repro_torch.dist.sharding import batch_block
+    from repro_torch.models.moe import routed_over
+    from repro_torch.train.loop import _batch_group, batch_routing
     model = _tp_model(case, mesh)
     serve = case["serve"]
     prompt = serve["prompt"]
@@ -403,7 +406,10 @@ def _tp_serve(case: dict, mesh, tag: str) -> None:
     pe = None if pe is None else torch.from_numpy(pe[rows])
     cache = model.init_cache(prompt[rows].shape[0], serve["max_len"])
     _check_cache_share(model, cache)
-    logits, cache = model.prefill(torch.from_numpy(prompt[rows]), cache, pe)
+    routing = batch_routing(_batch_group(mesh), index, count)
+    with routed_over(model, routing):
+        logits, cache = model.prefill(torch.from_numpy(prompt[rows]), cache,
+                                      pe)
     for j, (want_lg, want_tok) in enumerate(zip(serve["logits"],
                                                 serve["tokens"])):
         assert logits.shape[-1] == model.cfg.vocab_size
@@ -413,14 +419,15 @@ def _tp_serve(case: dict, mesh, tag: str) -> None:
         np.testing.assert_array_equal(tok.numpy(), want_tok[rows],
                                       err_msg=f"{tag} token {j}")
         if j + 1 < len(serve["logits"]):
-            logits, cache = model.decode(tok, cache)
+            with routed_over(model, routing):
+                logits, cache = model.decode(tok, cache)
 
 
 def _check_cache_share(model, cache: dict) -> None:
     """The rank's cache keeps 1/n of the kv heads where they split, of the
     ssm heads and conv channels where Mamba2 splits, of the WKV heads
     where the time mix splits, and every other dim whole."""
-    from repro_torch.dist.tensor_parallel import model_group
+    from repro_torch.dist.tensor_parallel import AttentionSplit, model_group
     from repro_torch.models.params import paths_from_tree
     mg = model_group(model)
     runs = model.split_plan.runs()
@@ -429,7 +436,7 @@ def _check_cache_share(model, cache: dict) -> None:
              "layers.wkv": (2, runs.get("time mix"))}
     blocks = model.attention_layers()
     tp = blocks[0].attn.tp if blocks else None
-    kv = tp is not None and tp.kv_index is None
+    kv = isinstance(tp, AttentionSplit) and tp.kv_index is None
     for name in ("layers", "dense_layers", "shared_attn"):
         split[f"{name}.k"] = split[f"{name}.v"] = (3, kv)
     whole = paths_from_tree(model.init_cache(1, 4, whole=True))
@@ -619,3 +626,169 @@ def tp_bf16_band(rank: int, world: int, directory: Path) -> None:
     for got, want in zip(logs[1], logs[0]):
         assert abs(got["loss"] - want["loss"]) <= band * abs(want["loss"]), \
             (got["loss"], want["loss"], band)
+
+
+# ----------------------- MoE routing, batch split ---------------------- #
+# (the workers of ``tests/test_torch_dist.py``'s routing tests: the test
+# writes the reference's results on the whole batch, computed with JAX in
+# its own process, to ``moe_case.pkl``)
+ROUTING_MESHES = {2: (2, 1), 4: (2, 2)}
+
+
+def _tp_case_named(directory: Path, name: str) -> dict:
+    import pickle
+    with open(directory / name, "rb") as f:
+        return pickle.load(f)
+
+
+def moe_routing_step(rank: int, world: int, directory: Path) -> None:
+    """mixtral's smoke config at capacity factor 1 (drops bind) on a
+    ``ROUTING_MESHES[world]`` ("data", "model") mesh, 2 microbatches,
+    against the reference's ``make_train_step`` on the whole batch: two
+    sharded steps from the reference's weights and AdamW state (loss, ce,
+    aux within 1e-5, the gradient norm within the case's bound, every
+    gathered parameter at ``test_train_steps_match_reference``'s
+    tolerance); then the first step's loss, aux and every gradient,
+    gathered over ``model`` and averaged over the batch group as the step
+    averages them, within ``test_loss_and_grads_match_reference``'s
+    bound."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.params import (opt_state_from_reference,
+                                           reference_paths)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    case = _tp_case_named(directory, "moe_case.pkl")
+    mesh = init_device_mesh("cpu", ROUTING_MESHES[world],
+                            mesh_dim_names=("data", "model"))
+    tag = f"{case['name']} on {ROUTING_MESHES[world]}"
+    tt = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32, lr=1e-3,
+                                     eps=case["eps"]),
+                     microbatches=case["micro"], warmup_steps=1,
+                     total_steps=6)
+    model = _tp_model(case, mesh).requires_grad_(True)
+    opt = opt_state_from_reference(case["opt"], tt.opt, "cpu", model=model)
+    step = make_train_step(model, tt, mesh=mesh)
+    for i, want in enumerate(case["steps"]):
+        batch = {k: torch.from_numpy(v) for k, v in want["batch"].items()}
+        opt, met = step(opt, batch)
+        for key in ("loss", "ce", "aux"):
+            w = want["metrics"][key]
+            assert abs(float(met[key]) - w) <= 1e-5 * abs(w) + 1e-7, \
+                (tag, i, key, float(met[key]), w)
+        w = want["metrics"]["grad_norm"]
+        assert abs(float(met["grad_norm"]) - w) <= want["norm_tol"] * w, \
+            (tag, i, float(met["grad_norm"]), w, want["norm_tol"])
+    got = reference_paths(_gathered(model, dict(model.named_parameters())))
+    for path, w in case["final"].items():
+        np.testing.assert_allclose(got[path].detach().numpy(), w, rtol=2e-4,
+                                   atol=2e-5, err_msg=f"{tag} {path}")
+
+    from repro_torch.dist.collectives import process_group
+    from repro_torch.dist.sharding import batch_block
+    from repro_torch.models.moe import routed_over
+    from repro_torch.train.loop import (_batch_group, accumulate_grads,
+                                        batch_routing, rank_rows)
+    model = _tp_model(case, mesh).requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    index, count = batch_block(mesh, case["batch"]["tokens"].shape[0])
+    group = _batch_group(mesh)
+    local = {k: rank_rows(v, case["micro"], index, count)
+             for k, v in batch.items()}
+    with routed_over(model, batch_routing(group, index, count)):
+        loss, metrics, grads = accumulate_grads(model, local, case["micro"])
+    pg = process_group(group)
+    n = dist.get_world_size(pg)
+    for t in [loss, metrics["aux"], *grads.values()]:
+        dist.all_reduce(t, group=pg)
+        t.div_(n)
+    for key, val in (("loss", loss), ("aux", metrics["aux"])):
+        assert abs(val.item() - case[key]) <= 1e-5 * abs(case[key]), \
+            (tag, key, val.item(), case[key])
+    got = reference_paths(_gathered(model, grads))
+    for path, want in case["grads"].items():
+        gap = _rel_l2(got[path].numpy(), want)
+        assert gap <= case["grad_tol"][path], (tag, path, gap)
+
+
+def moe_routing_forward(rank: int, world: int, directory: Path) -> None:
+    """One ``moe_forward`` of the case's MoE layer (capacity factor 1) on
+    rank r's block of the rows, routed over the world group: its outputs
+    within 1e-5 of their scale of the reference's rows of the whole
+    batch's output (the case holds pairs dropped), the aux the whole
+    batch's, and the gradient of the aux alone on the router, averaged
+    over the ranks as the step averages it, the reference's (so counted
+    once, not once a rank)."""
+    from repro_torch.dist.tensor_parallel import ModelGroup
+    from repro_torch.models import moe
+    from repro_torch.models.params import InitCtx, load_reference_params
+    case = _tp_case_named(directory, "moe_layer.pkl")
+    cfg = _tp_cfg(case)
+    p = moe.moe_init(cfg, InitCtx(torch.float32, torch.device("cpu")))
+    load_reference_params(p, case["params"])
+    p.requires_grad_(True)
+    x = case["x"]
+    rows = slice(rank * x.shape[0] // world, (rank + 1) * x.shape[0] // world)
+    mine = torch.from_numpy(x[rows])
+    routing = moe.BatchRouting(ModelGroup(dist.group.WORLD, world, rank),
+                               rank, world)
+    with moe.routed_over(p, routing):
+        out, aux = moe.moe_forward(p, mine, cfg)
+    assert case["dropped"] > 0
+    _close_to_scale(out.detach().numpy(), case["out"][rows], 1e-5,
+                    f"rank {rank} outputs")
+    assert abs(aux.item() - case["aux"]) <= 1e-5 * case["aux"], \
+        (aux.item(), case["aux"])
+    aux.backward()
+    g = p.router.grad.clone()
+    dist.all_reduce(g)
+    g.div_(world)
+    assert _rel_l2(g.numpy(), case["aux_router_grad"]) <= 1e-5, \
+        _rel_l2(g.numpy(), case["aux_router_grad"])
+
+
+def tp_moe_router_faults(rank: int, world: int, directory: Path) -> None:
+    """mixtral's smoke case split over a (1, 2) mesh (its experts split):
+    the gradient of the router within the reference's bound, and out of
+    it with the load-balance loss's router means entering the split
+    (``copy_to``: its gradient summed over ``model``, so counted twice) or
+    with the gates entering the experts as they are (identity backward:
+    each rank's gate gradient only its own experts' part)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models import moe
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import reference_paths
+    case = _tp_case(directory)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
+                                                               "model"))
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    path = "layers.moe.router"
+    want, tol = case["grads"][path], case["grad_tol"][path]
+    right_loss, right_enter = moe.load_balance_loss, tp.ExpertSplit.enter
+
+    def summed(probs, me, route):
+        return right_loss(tp.copy_to(probs, mg), me, route)
+
+    def gates_as_they_are(self, t):
+        return t if t.dim() == 1 else right_enter(self, t)
+    gaps = {}
+    try:
+        for name in ("right", "aux summed", "gates without copy_to"):
+            model = _tp_model(case, mesh).requires_grad_(True)
+            mg = tp.model_group(model)
+            assert model.split_plan.runs()["experts"]
+            if name == "aux summed":
+                moe.load_balance_loss = summed
+            if name == "gates without copy_to":
+                tp.ExpertSplit.enter = gates_as_they_are
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            moe.load_balance_loss, tp.ExpertSplit.enter = (right_loss,
+                                                           right_enter)
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            gaps[name] = _rel_l2(reference_paths(grads)[path].numpy(), want)
+    finally:
+        moe.load_balance_loss, tp.ExpertSplit.enter = right_loss, right_enter
+    assert gaps["right"] <= tol, (gaps, tol)
+    assert tol < min(gaps["aux summed"], gaps["gates without copy_to"]), \
+        (gaps, tol)

@@ -27,8 +27,17 @@ the CPU.
   vectors and the reference's int8 formula in numpy, the pipeline at S = 2
   and 4 against the sequential stack, a 2-rank data-parallel step against
   the one-process step, and ``recover`` onto a (2, 1) mesh.
+- A mixture of experts on a batch split over ranks routes as the
+  reference's program over the whole batch: mixtral's smoke config at
+  capacity factor 1 (drops bind) on (2, 1) and (2, 2) meshes, 2
+  microbatches, against the reference's ``make_train_step`` on the whole
+  batch (two steps, and the first step's loss, aux and every gradient);
+  one ``moe_forward`` on each rank's rows against the reference's on the
+  whole batch (outputs, aux, the aux's router gradient counted once).
 """
 import dataclasses
+import functools
+import pickle
 
 import numpy as np
 import pytest
@@ -52,6 +61,7 @@ from repro.dist import pipeline_par as jpipe
 from repro.dist import sharding as jshard
 from repro.dist.compat import shard_map
 from repro.models.model import build_model as jbuild
+from repro.models.model import loss_fn as jloss
 from repro.models.params import paths_from_tree as jpaths
 from repro.optim import adamw_init as jadamw_init
 from repro.train import loop as jloop
@@ -568,3 +578,150 @@ def test_quantized_formula_is_the_reference_s(one_rank):
         np.testing.assert_array_equal(
             _dist_workers.quantized_formula([x], plan[0] * plan[1], plan[2]),
             want)
+
+
+# -------------------- MoE routing over a split batch -------------------- #
+# mixtral's smoke config with drops: at capacity factor 1 a microbatch of
+# 2 x 16 tokens keeps 16 pairs an expert of its 64, and a rank's block
+# alone would keep 8
+ROUTING_OVER = {"capacity_factor": 1.0}
+ROUTING_MICRO = 2
+
+
+def _routing_cfg(dtype=jnp.float32):
+    return dataclasses.replace(jget("mixtral-8x22b", "smoke"), dtype=dtype,
+                               remat=False, **ROUTING_OVER)
+
+
+def _routing_batch(seed: int) -> dict:
+    tok = np.random.default_rng(seed).integers(
+        0, _routing_cfg().vocab_size, (4, 16)).astype(np.int32)
+    return {"tokens": tok, "labels": tok}
+
+
+@functools.lru_cache(maxsize=None)
+def _routing_grad_fn(dtype):
+    jm = jbuild(_routing_cfg(dtype))
+    return jax.jit(jax.value_and_grad(lambda p, b: jloss(jm, p, b),
+                                      has_aux=True))
+
+
+def _routing_grads(params, batch: dict, x64: bool = False):
+    """(loss, aux, {path: gradient}) of ``batch`` as the reference's step
+    accumulates them over ``ROUTING_MICRO`` microbatches, as float64 numpy;
+    with ``x64``, under jax x64 on the same weights."""
+    if x64:
+        jax.config.update("jax_enable_x64", True)
+    try:
+        dt = jnp.float64 if x64 else jnp.float32
+        if x64:
+            params = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), dt),
+                                  params)
+        fn = _routing_grad_fn(dt)
+        rows = batch["tokens"].shape[0] // ROUTING_MICRO
+        loss = aux = 0.0
+        grads = {}
+        for m in range(ROUTING_MICRO):
+            mb = {k: jnp.asarray(v[m * rows:(m + 1) * rows])
+                  for k, v in batch.items()}
+            (l, met), g = fn(params, mb)
+            loss += float(l) / ROUTING_MICRO
+            aux += float(met["aux"]) / ROUTING_MICRO
+            for k, v in jpaths(g).items():
+                grads[k] = grads.get(k, 0.0) + np.asarray(
+                    v, np.float64) / ROUTING_MICRO
+        return loss, aux, grads
+    finally:
+        if x64:
+            jax.config.update("jax_enable_x64", False)
+
+
+def _rel_l2(a, b) -> float:
+    return _dist_workers._rel_l2(a, b)
+
+
+def _flat(g: dict) -> np.ndarray:
+    return np.concatenate([g[k].ravel() for k in sorted(g)])
+
+
+@functools.lru_cache(maxsize=None)
+def _routing_case() -> dict:
+    """The reference's whole-batch results for ``moe_routing_step``."""
+    from repro.models.moe import expert_capacity
+    jm = jbuild(_routing_cfg())
+    jt = jloop.TrainConfig(
+        opt=dataclasses.replace(jloop.AdamWConfig(),
+                                moment_dtype=jnp.float32, lr=1e-3, eps=1.0),
+        microbatches=ROUTING_MICRO, warmup_steps=1, total_steps=6)
+    params, opt, _ = jloop.init_train_state(jm, jax.random.PRNGKey(0), jt)
+    batch = _routing_batch(0)
+    loss, aux, g32 = _routing_grads(params, batch)
+    _, _, g64 = _routing_grads(params, batch, x64=True)
+    case = {"name": "mixtral-8x22b cf 1", "arch": "mixtral-8x22b",
+            "over": dict(ROUTING_OVER), "eps": 1.0, "micro": ROUTING_MICRO,
+            "params": {k: np.asarray(v) for k, v in jpaths(params).items()},
+            "batch": batch, "loss": loss, "aux": aux, "grads": g32,
+            "grad_tol": {k: 1e-4 + 2 * _rel_l2(g32[k], g64[k]) for k in g32},
+            "opt": {key: {k: np.asarray(v)
+                          for k, v in jpaths(opt[key]).items()}
+                    for key in ("m", "v", "master")}}
+    case["opt"]["step"] = int(opt["step"])
+    assert expert_capacity(2 * 16, jm.cfg) == 16        # drops bind
+    jstep = jloop.make_train_step(jm, jt)
+    steps = []
+    for i in range(2):
+        sb = batch if i == 0 else _routing_batch(7)
+        _, _, s32 = _routing_grads(params, sb)
+        _, _, s64 = _routing_grads(params, sb, x64=True)
+        params, opt, met = jstep(params, opt,
+                                 {k: jnp.asarray(v) for k, v in sb.items()})
+        steps.append({"batch": sb,
+                      "norm_tol": 1e-4 + 2 * _rel_l2(_flat(s32), _flat(s64)),
+                      "metrics": {k: float(v) for k, v in met.items()}})
+    case["steps"] = steps
+    case["final"] = {k: np.asarray(v) for k, v in jpaths(params).items()}
+    return case
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_moe_step_routes_over_the_whole_batch(tmp_path, world):
+    """mixtral's smoke config at capacity factor 1 on a (2, 1) or (2, 2)
+    mesh, 2 microbatches: two sharded steps, and the first step's loss,
+    aux and gradients, against the reference's step on the whole batch
+    (``_dist_workers.moe_routing_step``)."""
+    with open(tmp_path / "moe_case.pkl", "wb") as f:
+        pickle.dump(_routing_case(), f)
+    _dist_workers.spawn_group(tmp_path, world, ["moe_routing_step"],
+                              GROUP_TIMEOUT_S)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_moe_forward_routes_over_the_whole_batch(tmp_path, world):
+    """One ``moe_forward`` on each rank's rows of a (4, 16) batch at
+    capacity factor 1, routed over the world group, against the
+    reference's on the whole batch (``_dist_workers.moe_routing_forward``):
+    outputs, aux and the aux's router gradient."""
+    from repro.models import moe as jmoe
+    from repro.models.params import InitCtx as JCtx
+    cfg = _routing_cfg()
+    jp = jmoe.moe_init(cfg, JCtx(key=jax.random.PRNGKey(3),
+                                 dtype=jnp.float32, abstract=False), "moe")
+    x = np.random.default_rng(4).normal(size=(4, 16, cfg.d_model)
+                                        ).astype(np.float32)
+    out, aux = jmoe.moe_forward(jp, jnp.asarray(x), cfg)
+    probs = jax.nn.softmax(jnp.asarray(x.reshape(-1, cfg.d_model))
+                           @ jp["router"], axis=-1)
+    _, topi = jax.lax.top_k(probs, cfg.experts_per_token)
+    counts = np.bincount(np.asarray(topi).ravel(), minlength=cfg.n_experts)
+    dropped = int(np.maximum(
+        counts - jmoe.expert_capacity(x.shape[0] * x.shape[1], cfg), 0).sum())
+    grad = jax.grad(lambda p: jmoe.moe_forward(p, jnp.asarray(x), cfg)[1])(jp)
+    case = {"arch": "mixtral-8x22b", "over": dict(ROUTING_OVER),
+            "params": {k: np.asarray(v) for k, v in jpaths(jp).items()},
+            "x": x, "out": np.asarray(out), "aux": float(aux),
+            "dropped": dropped,
+            "aux_router_grad": np.asarray(grad["router"])}
+    with open(tmp_path / "moe_layer.pkl", "wb") as f:
+        pickle.dump(case, f)
+    _dist_workers.spawn_group(tmp_path, world, ["moe_routing_forward"],
+                              GROUP_TIMEOUT_S)

@@ -7,7 +7,12 @@ dryrun}``) against the JAX package's, on the CPU; it mirrors
   512 ranks, no error row, FLOPs and peak above 0, the split's
   all-reduces and all-gathers; for zamba2-7b x decode_32k at 16x16 a
   rank's FLOPs and peak with its Mamba2 layers split, and the dry run's
-  whole cache (ssm heads from the leaf, not ``cfg.n_heads``).
+  whole cache (ssm heads from the leaf, not ``cfg.n_heads``); for
+  mixtral-8x22b and deepseek-v3-671b x decode_32k at 16x16 the MoE split
+  (each expert's columns, or the experts and MLA's heads), their rows
+  under the whole rank's FLOPs and peak, with collectives, and their
+  argument bytes unchanged, deepseek-v3-671b's equal to the reference's
+  dry run's.
 - Its memory rows against the reference's dry run (in a subprocess of its
   own, ``jax_subprocess_env``) on the 16x16 mesh for rwkv6-1.6b, mixtral-
   8x22b and musicgen-large x decode_32k: ``n_devices`` and
@@ -162,6 +167,77 @@ def test_dryrun_global_cache_restores_whole_heads():
     local = paths_from_tree(model.init_cache(8, 32768))
     assert (local["layers.ssm"].shape[2], local["layers.conv"].shape[3],
             local["shared_attn.k"].shape[3]) == (7, 456, 2)
+
+
+# the MoE family's split decode rows at 16x16: (the whole rank's FLOPs and
+# peak bytes before the split, the gates chip_smoke.py's phase 18 holds the
+# split row to, its argument bytes, its split plan's line)
+MOE_DECODE = {
+    "mixtral-8x22b": (2.292e12, 269.21 * 2 ** 30, 3.1e11, 50 * 2 ** 30,
+                      8_697_844_736, "attention split, experts whole, "
+                      "expert mlp split, vocab split"),
+    "deepseek-v3-671b": (1.518e13, 1267.92 * 2 ** 30, 1.93e12,
+                         196 * 2 ** 30, 24_174_346_132, "mla split, mlp "
+                         "split, experts split, expert mlp whole, vocab "
+                         "split")}
+
+
+@pytest.fixture(scope="module")
+def moe_decode_rows():
+    """(rows by arch, stdout) of the port's dry run of ``MOE_DECODE``'s
+    archs x decode_32k on the 16x16 mesh, one process."""
+    out = _python(f"""
+        import json
+        from repro_torch.launch import dryrun
+        print(json.dumps([dryrun.run_cell(a, "decode_32k", multi_pod=False)
+                          for a in {tuple(MOE_DECODE)}]))
+    """, _port_env())
+    return {r["arch"]: r for r in _rows(out)}, out
+
+
+@pytest.mark.parametrize("arch", list(MOE_DECODE))
+def test_dryrun_moe_decode_rows_split(moe_decode_rows, arch):
+    """mixtral-8x22b (each expert's 16,384 columns over 16: its 8 experts
+    do not divide) and deepseek-v3-671b (16 of 256 experts and 8 of 128
+    MLA heads a rank) x decode_32k at 16x16, routing over the batch group:
+    a rank's FLOPs and peak under the whole rank's and within phase 18's
+    gates, all-reduces and all-gathers issued, the argument bytes as they
+    were, and the split plan printed."""
+    rows, log = moe_decode_rows
+    r = rows[arch]
+    flops, peak, flops_gate, peak_gate, argument, plan = MOE_DECODE[arch]
+    assert "error" not in r, r
+    assert 0 < r["flops_total"] <= min(flops, flops_gate), r
+    assert 0 < r["bytes_per_device"]["peak"] <= min(peak, peak_gate), r
+    assert r["collective_bytes"]["all-reduce"] > 0, r
+    assert r["collective_bytes"]["all-gather"] > 0, r
+    assert r["bytes_per_device"]["argument"] == argument, r
+    assert plan in log, log
+
+
+def test_dryrun_deepseek_argument_bytes_equal_the_reference(moe_decode_rows):
+    """deepseek-v3-671b x decode_32k's argument bytes and degraded dims at
+    16x16 equal the reference's dry run's (in a process of its own),
+    lowered without its activation spec (``act_spec=None``): this jax
+    refuses the MoE dispatch's ``with_sharding_constraint`` on the
+    production mesh's explicit axes, and the arguments are the inputs'
+    shards, which no activation spec moves."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)         # the reference's dryrun sets its own
+    (ref,) = _rows(_python("""
+        import json
+        from repro.launch import dryrun
+        from repro.configs import get_config
+        from repro.launch.shapes import SHAPES
+        print(json.dumps([dryrun._lower_and_analyze(
+            get_config("deepseek-v3-671b"), "deepseek-v3-671b",
+            SHAPES["decode_32k"], multi_pod=False, verbose=False,
+            act_spec=None)]))
+    """, env, timeout=600))
+    port = moe_decode_rows[0]["deepseek-v3-671b"]
+    assert port["bytes_per_device"]["argument"] == \
+        ref["bytes_per_device"]["argument"] == 24_174_346_132
+    assert port["degraded_shardings"] == ref["degraded_shardings"]
 
 
 @pytest.fixture(scope="module")

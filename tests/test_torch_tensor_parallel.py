@@ -40,7 +40,8 @@ unsplit results, on the CPU.
   the card to).
 - Which regions split, for the six configs of the dense, vlm and audio
   families and for zamba2-7b and rwkv6-1.6b at ``model`` = 2 and 16,
-  against ``spec_for``; the MoE and MLA families stay whole.  Mamba2's
+  against ``spec_for`` (the MoE family's in
+  ``test_torch_tensor_parallel_moe``).  Mamba2's
   index-map cut put back together equals the whole leaf bit for bit.
   (The zamba2-7b and rwkv6-1.6b parity cases, and the gated norm's need
   of its all-reduce backward, run from ``test_torch_tensor_parallel_scan``
@@ -70,6 +71,8 @@ from _lm_parity import jax_model
 from repro.models.model import build_model as jbuild
 from repro.models.model import loss_fn as jloss
 from repro.models.params import paths_from_tree as jpaths
+from repro.models.params import tree_from_paths as jtree
+from repro.optim import adamw_init as jadamw_init
 from repro.train import loop as jloop
 from repro_torch.configs import get_config
 from repro_torch.dist import sharding
@@ -87,11 +90,24 @@ CONFIGS = {
     "qwen2-vl-2b-4q1kv": ("qwen2-vl-2b", {"n_heads": 4, "n_kv_heads": 1}),
     "zamba2-7b": ("zamba2-7b", {}),
     "rwkv6-1.6b": ("rwkv6-1.6b", {}),
+    "mixtral-8x22b": ("mixtral-8x22b", {}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}),
+    # 3 experts do not split over 2 ranks: each expert's columns do
+    "mixtral-8x22b-3e": ("mixtral-8x22b", {"n_experts": 3}),
 }
 # the scan families' parity cases run from test_torch_tensor_parallel_scan
-# .py: a file of its own goes to a test worker of its own, and their JAX
+# .py, the MoE family's from test_torch_tensor_parallel_moe.py: a file of
+# its own goes to a test worker of its own, and the scan families' JAX
 # references take minutes on the CPU
 SCAN_CONFIGS = ("zamba2-7b", "rwkv6-1.6b")
+MOE_CONFIGS = ("mixtral-8x22b", "deepseek-v3-671b", "mixtral-8x22b-3e")
+# configs whose reference weights are ``_conditioned``: at the reference's
+# init (stacked layer weights at std 1/sqrt(depth), 0.71 for deepseek's two
+# MoE layers) MLA's softmax rows are saturated, and the float32 orders of
+# the two frameworks pick different keys where two tie: the unsplit port's
+# second step's gradient norm lies 1.7e-3 from the reference's, ten times
+# the reference's own float32 gap to float64
+CONDITIONED = ("deepseek-v3-671b",)
 # a spawned group must end within this (a few tens of seconds when it
 # passes)
 GROUP_TIMEOUT_S = 240
@@ -197,6 +213,9 @@ def _reference(name: str) -> dict:
                                 lr=1e-3, eps=EPS),
         warmup_steps=1, total_steps=6)
     params, opt, _ = jloop.init_train_state(jm, jax.random.PRNGKey(0), jt)
+    if name in CONDITIONED:
+        params = _conditioned(params)
+        opt = jadamw_init(params, jt.opt)
     flat = {k: np.asarray(v) for k, v in jpaths(params).items()}
     batch = _batch(cfg, 0)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -256,14 +275,26 @@ def _reference(name: str) -> dict:
     return case
 
 
+def _conditioned(params: dict) -> dict:
+    """The reference's parameter tree with each stacked layer matrix (n,
+    fan-in, ...) rescaled from its std 1/sqrt(n) to 1/sqrt(fan-in), the
+    leading dim of a layer's leaf (``chip_smoke._conditioned``'s rule)."""
+    flat = {}
+    for path, a in jpaths(params).items():
+        if path.split(".")[0] in ("layers", "dense_layers") and a.ndim >= 3:
+            a = a * float(np.sqrt(a.shape[0] / a.shape[1]))
+        flat[path] = a
+    return jtree(flat)
+
+
 def _write_case(tmp_path: Path, case: dict) -> None:
     with open(tmp_path / "tp_case.pkl", "wb") as f:
         pickle.dump(case, f)
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("name", [n for n in CONFIGS
-                                  if n not in SCAN_CONFIGS])
+@pytest.mark.parametrize("name", [n for n in CONFIGS if n not in
+                                  SCAN_CONFIGS + MOE_CONFIGS])
 def test_split_matches_reference(tmp_path, name, world):
     """The split model against the reference's unsplit results on every
     mesh of ``_dist_workers.TP_MESHES[world]`` (see the module's
@@ -314,7 +345,7 @@ def test_split_plan_follows_spec_for(arch, n):
     want = {"heads": cfg.n_heads % n == 0,
             "kv_heads": cfg.n_kv_heads % n == 0,
             "mlp": cfg.d_ff % n == 0, "vocab": cfg.vocab_size % n == 0}
-    assert plan.family is None and plan.split == want, plan.split
+    assert plan.split == want, plan.split
     for name, p in model.named_parameters():
         spec = sharding.spec_for(tuple(p.shape), p.logical_axes, rules, mesh)
         assert plan.specs[name] == spec, name
@@ -332,17 +363,6 @@ def test_split_plan_follows_spec_for(arch, n):
     if (arch, n) == ("qwen2-vl-2b", 2):
         assert all(plan.split.values())
     assert f"model axis {n}" in plan.describe()
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
-def test_other_families_stay_whole(arch):
-    """A mesh with a ``model`` axis leaves the MoE and MLA families whole
-    (their splits are later slices): no parameter cut."""
-    model = build_model(get_config(arch, "full"), "meta", seed=None)
-    model.shard(_FakeMesh({"data": 16, "model": 16}))
-    assert not model.split_plan.any and model.tp is None
-    assert "later slice" in model.split_plan.describe()
-    assert not any(hasattr(p, "cut") for p in model.parameters())
 
 
 class _RankMesh(_FakeMesh):
@@ -374,7 +394,7 @@ def test_ssm_families_split_as_spec_for(arch, n):
     mesh = _RankMesh({"data": 16, "model": n})
     model.shard(mesh)
     plan = model.split_plan
-    assert plan.family is None and all(plan.runs().values()), \
+    assert all(plan.runs().values()), \
         plan.describe()
     want = ({"mamba2", "attention", "mlp", "vocab"} if arch == "zamba2-7b"
             else {"time mix", "channel mix", "vocab"})
