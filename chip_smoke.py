@@ -140,8 +140,9 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               (zamba2-7b at 6 layers, rwkv6-1.6b whole, 4 x 1024; exact
               launches a rank and step; losses within
               ``TP_BF16_LOSS_RTOL`` of phase 15's), a checked forward and
-              backward, a prefill of 8 x 2048 and 8 decode steps at full
-              depth (81 ``ssd_scan`` and 13 ``flash_attention``, or 24
+              backward, a prefill of 8 x 2048 and 8 decode steps
+              (zamba2-7b at ``TP_SERVE_LAYERS``' 27 layers: 27
+              ``ssd_scan`` and 4 ``flash_attention``; rwkv6-1.6b whole, 24
               ``rwkv6``, a prefill; 24 ``rwkv6`` a decode step) and a
               checked prefill and decode step, every launch at the local
               shapes held to its plain version, and the float32 control
@@ -162,15 +163,33 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               activations against the unsplit layer's on rank 0
               (``_moe_layer_check``), and the float32 control without
               train steps (mixtral-8x22b at 2 layers, its experts split;
-              deepseek-v3-671b's 3 dense MLA layers).  Each rank's step
-              p50, peak memory and prefill time are printed beside the
-              card's name and power limit; two processes share its SMs,
-              so none is a speed figure for the split.  A rank's failure
-              fails the run;
+              deepseek-v3-671b's 3 dense MLA layers).  Last, FSDP
+              (``repro_torch.dist.fsdp``, ``_fsdp_model``): qwen2-vl-2b
+              whole cut over the ``data`` axis of a (2, 1) mesh on the same
+              two ranks (each weight's ``embed`` dim; a layer's weights
+              gathered whole for its compute, its gradients
+              reduce-scattered back): a rank's resting parameters at most
+              half the whole model's plus the leaves left whole (and
+              ``torch.cuda.memory_allocated`` across the build within the
+              caching allocator's rounding of that); phase
+              16's 4 steps, each rank its 2 rows of each microbatch, 112
+              ``flash_attention`` a rank and step, bf16 losses within
+              ``TP_BF16_LOSS_RTOL`` of phase 16's and equal on both
+              ranks; a checked forward and backward; a prefill of the
+              rank's 4 of the 8 x 2048 prompts and 8 decode steps, exact
+              launches, a checked prefill and decode step; the float32
+              control at 2 layers, its greedy tokens over both ranks'
+              rows equal to the unsplit model's.  Each rank's step p50,
+              peak memory and prefill time are printed beside the card's
+              name and power limit; two processes share its SMs, so none
+              is a speed figure for the split.  A rank's failure fails
+              the run;
 18. launch -- the launch tooling and the static analysis on the card's
               host, each in a process of its own (a default process group
               starts once a process, and phase 16's was in this one), all
-              at once: ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
+              at once and beside phase 17 (host work on fake tensors; phase
+              17's two ranks mostly wait on the card and on gloo, and give
+              no speed figure): ``repro_torch.launch.dryrun`` for rwkv6-1.6b x
               decode_32k on the (16, 16) and (2, 16, 16) meshes of a fake
               256- and 512-rank group, for qwen2-vl-2b x train_4k on both
               and for llama3-405b, zamba2-7b, mixtral-8x22b and
@@ -185,11 +204,13 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               at 16x16, or a 2x16x16 row whose FLOPs are not half of it,
               or the split decode rows at 16x16 past their gates
               (``SPLIT_DECODE_GATES``: zamba2-7b within 2.44e10 FLOPs and
-              12 GiB, rwkv6-1.6b within 2.9e9 FLOPs, mixtral-8x22b within
-              3.1e11 and 50 GiB, deepseek-v3-671b within 1.93e12 and 196
+              7 GiB, rwkv6-1.6b within 2.9e9 FLOPs, mixtral-8x22b within
+              3.1e11 and 17 GiB, deepseek-v3-671b within 1.93e12 and 49
               GiB; zamba2-7b's, mixtral-8x22b's and deepseek-v3-671b's
-              argument bytes the reference's), or without their split
-              plan's line;
+              argument bytes the reference's; the two MoE rows' peaks at
+              or below the reference's own device's,
+              ``REFERENCE_DECODE_PEAK``), or without their split plan's
+              line (every family also cut over ``data``);
               ``python -m repro_torch.analysis src/repro_torch`` must find
               nothing.  Each row is printed beside the card's name and
               power limit.
@@ -3286,11 +3307,18 @@ TP_F32_RTOL = 1e-5
 # band tests/test_torch_tensor_parallel.py holds the CPU to
 # (BF16_LOSS_RTOL)
 TP_BF16_LOSS_RTOL = 2.0 ** -8
+# the most a caching-allocator block holds past the storage it was asked
+# for: the request rounded up to 512 B, plus an unsplit remainder of its
+# segment, which the allocator splits off only past 1 MiB
+ALLOC_OVERHANG = 2 ** 20 + 511
 # the scan families split over the same (1, 2) mesh after qwen2-vl-2b:
 # phase 15's bf16 steps (zamba2-7b at 6 layers, rwkv6-1.6b whole, batch
-# 4 x 1024, their losses held to phase 15's), then each whole at full
-# depth through a prefill of 8 x 2048 and 8 decode steps
+# 4 x 1024, their losses held to phase 15's), then each at full width
+# through a prefill of 8 x 2048 and 8 decode steps, rwkv6-1.6b whole and
+# zamba2-7b at TP_SERVE_LAYERS: its 81-layer split prefill took 22.6 s a
+# rank through gloo, and the run must make room for the FSDP part
 TP_SCAN_ARCHS = ("zamba2-7b", "rwkv6-1.6b")
+TP_SERVE_LAYERS = {"zamba2-7b": 27}         # 4 shared-block applications
 # the MoE family split over the same mesh after them, without a train step
 # (a rank's share of either's training state does not fit beside the
 # other's): full width at these depths (mixtral-8x22b at phase 12's 8;
@@ -3326,8 +3354,8 @@ def tp_worker(rank: int, directory: str) -> int:
     """One rank of phase 17, in a process of its own: joins the gloo group
     on a ``FileStore`` in ``directory``, runs ``_tp_model`` of qwen2-vl-2b
     and of each of ``TP_SCAN_ARCHS``, then ``_tp_moe`` of each of
-    ``TP_MOE_ARCHS``, and writes their results to ``rank<r>.json`` there.
-    A failure raises (exit 1)."""
+    ``TP_MOE_ARCHS``, then ``_fsdp_model``, and writes their results to
+    ``rank<r>.json`` there.  A failure raises (exit 1)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3345,6 +3373,7 @@ def tp_worker(rank: int, directory: str) -> int:
                for arch in (TRAIN_ARCH,) + TP_SCAN_ARCHS}
         out.update({arch: _tp_moe(rank, device, arch)
                     for arch in TP_MOE_ARCHS})
+        out["fsdp"] = _fsdp_model(rank, device)
     finally:
         dist.destroy_process_group()
     with open(f"{directory}/rank{rank}.json", "w") as f:
@@ -3358,9 +3387,9 @@ def _tp_model(rank: int, device, arch: str) -> dict:
     1024 in 2 microbatches; a scan family: phase 15's ``TRAIN_ONE_STEPS``
     at its depth and batch), exact launches a step, a microbatch's forward
     and backward with every launch held to its plain version; then at full
-    depth (the trained model, or one from the seed where training cut the
-    depth) a prefill of 8 x 2048 and ``TP_SERVE_STEPS`` decode steps after
-    a first-use run, exact launches, a prefill and a decode step with
+    depth, or ``TP_SERVE_LAYERS`` (the trained model, or one from the seed
+    where training cut the depth), a prefill of 8 x 2048 and
+    ``TP_SERVE_STEPS`` decode steps after a first-use run, exact launches, a prefill and a decode step with
     every launch held to its plain version; and the float32 control.  ->
     its losses, launches, times and peaks."""
     import torch
@@ -3424,10 +3453,10 @@ def _tp_model(rank: int, device, arch: str) -> dict:
     reset_launch_counts()
     del opt, step, batches, micro
     model.requires_grad_(False)
-    if cfg.n_layers < _train_cfg(arch).n_layers:
+    if cfg.n_layers != _train_cfg(arch, TP_SERVE_LAYERS.get(arch)).n_layers:
         del model
         torch.cuda.empty_cache()
-        cfg = _train_cfg(arch)
+        cfg = _train_cfg(arch, TP_SERVE_LAYERS.get(arch))
         model = build_model(cfg, device, seed=0, mesh=mesh)
     torch.cuda.empty_cache()
 
@@ -3468,7 +3497,7 @@ def _tp_model(rank: int, device, arch: str) -> dict:
            "counts": counts}
     del model, res, prompts, pe
     torch.cuda.empty_cache()
-    out["control"] = _tp_f32_control(device, mesh, tag, arch)
+    out["control"], _, _ = _tp_f32_control(device, mesh, tag, arch)
     return out
 
 
@@ -3580,7 +3609,7 @@ def _tp_moe(rank: int, device, arch: str) -> dict:
     out["moe_layer"] = _moe_layer_check(layer, seen[0], cfg, device, tag)
     del layer, seen
     torch.cuda.empty_cache()
-    out["control"] = _tp_f32_control(device, mesh, tag, arch)
+    out["control"], _, _ = _tp_f32_control(device, mesh, tag, arch)
     return out
 
 
@@ -3646,10 +3675,174 @@ def _moe_layer_check(layer, h, cfg, device, tag: str) -> float:
     return ratio
 
 
-def _tp_mesh(device):
+def _tp_mesh(device, shape=(1, TP_RANKS)):
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device.type, (1, TP_RANKS),
+    return init_device_mesh(device.type, shape,
                             mesh_dim_names=("data", "model"))
+
+
+def _allocator_blocks(ptrs) -> dict[int, int]:
+    """{address: size} of the caching allocator's allocated blocks that
+    start at the addresses ``ptrs`` (``torch.cuda.memory_snapshot``)."""
+    import torch
+    want, found = set(ptrs), {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            addr = block.get("address", addr)
+            if block["state"] == "active_allocated" and addr in want:
+                found[addr] = block["size"]
+            addr += block["size"]
+    return found
+
+
+def _fsdp_model(rank: int, device) -> dict:
+    """Phase 17's FSDP part on one rank: qwen2-vl-2b whole, at full width,
+    cut over the ``data`` axis of a (``TP_RANKS``, 1) mesh (``dist.fsdp``:
+    each weight's ``embed`` dim, one layer gathered at a time, the
+    gradients reduce-scattered back).  Its resting parameter bytes (their
+    storages) at most half the whole model's plus the leaves the rules
+    leave whole, and ``torch.cuda.memory_allocated`` across the build at
+    most that plus what the allocator's blocks of the parameters hold past
+    their storages (``_allocator_blocks``; each at most
+    ``ALLOC_OVERHANG``); phase 16's 4 steps of 8 x 1024
+    in 2 microbatches, this rank taking its 2 rows of each, exact
+    launches a step; a microbatch's forward and backward with every
+    launch held to its plain version; a prefill of this rank's 4 of the 8
+    x 2048 prompts and ``TP_SERVE_STEPS`` decode steps (no first-use run:
+    the steps warmed the path, and each decode step gathers every weight
+    through gloo), exact launches; a checked prefill and decode step; the float32
+    control at ``TP_F32_LAYERS`` on this rank's rows.  -> its losses,
+    launches, times, peaks, resting bytes and the control's tokens."""
+    import math
+    import torch
+    import repro_torch.train.loop as loop
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.sharding import batch_block
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import whole_shape
+
+    device = torch.device(device)
+    tag = f"[fsdp rank {rank} {TRAIN_ARCH}]"
+    mesh = _tp_mesh(device, (TP_RANKS, 1))
+    cfg = _train_cfg(TRAIN_ARCH)
+    tcfg = loop.TrainConfig(microbatches=TRAIN_MICRO,
+                            warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    model = build_model(cfg, device, seed=None, mesh=mesh)
+    torch.cuda.synchronize()
+    resting = torch.cuda.memory_allocated(device) - before
+    params = list(model.parameters())
+    whole = sum(math.prod(whole_shape(p)) * p.element_size() for p in params)
+    kept = sum(p.numel() * p.element_size() for p in params
+               if not hasattr(p, "data_cut"))
+    own = sum(p.untyped_storage().nbytes() for p in params)
+    bound = whole / 2 + kept
+    # the caching allocator's blocks that hold the parameters, from its
+    # own snapshot: a block is the request rounded up to 512 B, plus the
+    # remainder of its segment where that is 1 MiB or less (unsplit)
+    blocks = _allocator_blocks(p.untyped_storage().data_ptr()
+                               for p in params)
+    over = [blocks.get(p.untyped_storage().data_ptr(), -1)
+            - p.untyped_storage().nbytes() for p in params]
+    slack = sum(over)
+    print(f"{tag} {fsdp.describe(model)}; {model.split_plan.describe()}; "
+          f"this rank's parameters {own} B (their storages), "
+          f"torch.cuda.memory_allocated across the build {resting} B, "
+          f"against the whole model's {whole} B: {own / whole:.4f} and "
+          f"{resting / whole:.4f} of it; bound half of it plus the leaves "
+          f"left whole ({kept} B): {bound:.0f} B; the allocator's blocks "
+          f"of the parameters {own + slack} B, {slack} B past their "
+          f"storages (at most {max(over)} B a block)")
+    check(min(over) >= 0 and max(over) <= ALLOC_OVERHANG,
+          f"{tag} a parameter's allocator block overhangs its storage by "
+          f"{min(over)}..{max(over)} B, outside 0..{ALLOC_OVERHANG}")
+    check(model.fsdp is not None and model.cfg.use_kernel is True
+          and own <= bound and resting <= bound + slack,
+          f"{tag} a rank rests {own} B of parameters ({resting} B "
+          f"allocated), past {bound:.0f} (+ the blocks' {slack})")
+    _, opt = loop.init_train_state(model, 0, tcfg)
+    step = loop.make_train_step(model, tcfg, mesh=mesh)
+    batches = [train_batch(cfg, device, TRAIN_BATCH, seed=s) for s in (0, 1)]
+    want = train_launches(cfg, tcfg.microbatches)
+    counts = dict.fromkeys(_kernel_modules(), 0)
+    mets, times = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(DIST_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(opt, batches[i % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = _lm_counts(launch_counts())
+        check(got == want, f"{tag} step {i} launched {got}, not {want}")
+        for n, c in got.items():
+            counts[n] += c
+        mets.append({k: float(v) for k, v in m.items()})
+    train_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    p50 = statistics.median(times[1:])
+    print(f"{tag} {DIST_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} cut over "
+          f"data, {tcfg.microbatches} microbatches, remat: losses "
+          + " ".join(f"{m['loss']:.6f}" for m in mets) + "; step times "
+          + " ".join(f"{t * 1e3:.1f}" for t in times) + f" ms (p50 of steps "
+          f"2-{DIST_STEPS}: {p50 * 1e3:.1f} ms); peak memory "
+          f"{train_peak:.3f} GB; launches a step {want}")
+    index, count = batch_block(mesh, TRAIN_BATCH)
+    per = TRAIN_BATCH // (TRAIN_MICRO * count)
+    micro = {k: loop.rank_rows(v, TRAIN_MICRO, index, count)[:per]
+             for k, v in batches[0].items()}
+    reset_launch_counts()
+    _checked_train_grads(model, micro, f"bf16 cut over data, rank {rank}")
+    reset_launch_counts()
+    del opt, step, batches, micro
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    index, count = batch_block(mesh, SERVE_BATCH)
+    rows = slice(index * SERVE_BATCH // count,
+                 (index + 1) * SERVE_BATCH // count)
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed=0,
+                           device=device)[rows]
+    pe = serve_patch_embeds(cfg, device)[rows]
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe)
+    got = _lm_counts(launch_counts())
+    serve_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    want_serve = lm_launches(cfg, 1, TP_SERVE_STEPS)
+    check(got == want_serve, f"{tag} a prefill and {TP_SERVE_STEPS} decode "
+          f"steps launched {got}, not {want_serve}")
+    for n, c in got.items():
+        counts[n] += c
+    print(f"{tag} rows {rows.start}-{rows.stop - 1} of {SERVE_BATCH}: a "
+          f"prefill of {prompts.shape[0]} x {SERVE_PROMPT} in "
+          f"{res.prefill_ms:.3f} ms, {TP_SERVE_STEPS} greedy decode steps "
+          f"p50 {res.decode_p50_ms():.3f} ms; peak memory {serve_peak:.3f} "
+          f"GB; launches {got}")
+    check(res.tokens.shape == (prompts.shape[0], TP_SERVE_STEPS + 1)
+          and bool((res.tokens >= 0).all()
+                   and (res.tokens < cfg.vocab_size).all()),
+          f"{tag} greedy tokens {tuple(res.tokens.shape)} out of range")
+    reset_launch_counts()
+    _check_on_activations(model, prompts, f"bf16 cut over data, rank {rank}",
+                          pe)
+    reset_launch_counts()
+    out = {"losses": [m["loss"] for m in mets],
+           "grad_norms": [m["grad_norm"] for m in mets],
+           "step_p50_ms": p50 * 1e3, "train_peak_gb": train_peak,
+           "serve_peak_gb": serve_peak, "prefill_ms": res.prefill_ms,
+           "decode_p50_ms": res.decode_p50_ms(), "resting_bytes": own,
+           "allocated_bytes": resting,
+           "whole_bytes": whole, "counts": counts}
+    del model, res, prompts, pe
+    torch.cuda.empty_cache()
+    out["control"], out["tokens"], out["unsplit_tokens"] = _tp_f32_control(
+        device, mesh, tag, TRAIN_ARCH, rows)
+    return out
 
 
 def _conditioned(model) -> None:
@@ -3674,7 +3867,9 @@ def _conditioned(model) -> None:
                 p.mul_(float(fan_in) ** -0.5 / scale)
 
 
-def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
+def _tp_f32_control(device, mesh, tag: str, arch: str,
+                    serve_rows: slice = slice(None)
+                    ) -> tuple[dict, list, list]:
     """``arch`` at full width and ``TP_F32_LAYERS`` layers in float32
     (zamba2-7b's shared block applied once, after its second layer; the
     MoE family at ``TP_F32_MOE_LAYERS``, deepseek-v3-671b's all dense),
@@ -3685,7 +3880,10 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
     training state does not fit), then a prefill of the serve prompts and
     ``TP_SERVE_STEPS`` greedy decode steps (last-position logits,
     tokens), the split ones within ``TP_F32_RTOL`` (relative; the logits
-    of their scale) of the unsplit ones, the tokens equal."""
+    of their scale) of the unsplit ones, the tokens equal.  Cut over
+    ``data`` the model serves this rank's ``serve_rows`` of the prompts,
+    held to the unsplit model's same rows.  -> (the gaps, the split run's
+    greedy tokens, the unsplit run's)."""
     import dataclasses
     import torch
     import repro_torch.train.loop as loop
@@ -3719,7 +3917,7 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
     pe = serve_patch_embeds(cfg, device)
     pe = None if pe is None else pe.float()
     runs = []
-    for m in (mesh, None):
+    for m, mine in ((mesh, serve_rows), (None, slice(None))):
         model = build_model(cfg, device, seed=0, mesh=m)
         _conditioned(model)
         mets = []
@@ -3732,13 +3930,16 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
                 mets.append((float(met["loss"]), float(met["grad_norm"])))
             del opt, step
             model.requires_grad_(False)
-        res = serve(model, prompts, TP_SERVE_STEPS + 1, patch_embeds=pe,
+        res = serve(model, prompts[mine], TP_SERVE_STEPS + 1,
+                    patch_embeds=None if pe is None else pe[mine],
                     keep_logits=True)
         runs.append((mets, [res.prefill_logits] + res.decode_logits,
                      res.tokens))
         del model, res
         torch.cuda.empty_cache()
-    (got_m, got_l, got_t), (want_m, want_l, want_t) = runs
+    (got_m, got_l, got_t), (want_m, want_l, all_t) = runs
+    want_l = [lg[serve_rows] for lg in want_l]
+    want_t = all_t[serve_rows]
     gaps = {"logits": max(((a - b).abs().max() / b.abs().max()).item()
                           for a, b in zip(got_l, want_l))}
     if not moe:
@@ -3756,7 +3957,7 @@ def _tp_f32_control(device, mesh, tag: str, arch: str) -> dict:
     check(all(v <= TP_F32_RTOL for v in gaps.values()) and same,
           f"{tag} the split float32 {arch} differs from the unsplit one: "
           f"{gaps}, tokens equal {same}")
-    return gaps
+    return gaps, got_t.tolist(), all_t.tolist()
 
 
 def phase_tp(device, unsplit_losses: list[float],
@@ -3850,6 +4051,37 @@ def phase_tp(device, unsplit_losses: list[float],
                   f"share its SMs: no speed figure for the split)")
             for n in counts:
                 counts[n] += run["counts"][n]
+    runs = [res["fsdp"] for res in results]
+    losses = runs[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, unsplit_losses)]
+    print(f"[fsdp] {TRAIN_ARCH} bf16 losses cut over data "
+          + " ".join(f"{x:.6f}" for x in losses) + " against phase 16's "
+          "unsharded " + " ".join(f"{x:.6f}" for x in unsplit_losses)
+          + ": relative gaps " + " ".join(f"{g:.2e}" for g in gaps)
+          + f" (band {TP_BF16_LOSS_RTOL:.4g})")
+    check(all(run["losses"] == losses for run in runs)
+          and len(gaps) == DIST_STEPS and max(gaps) <= TP_BF16_LOSS_RTOL,
+          f"the bf16 losses cut over data disagree across the ranks or "
+          f"leave the band: {[run['losses'] for run in runs]}, {gaps}")
+    # data rank r serves block r of the prompts: in rank order, the rows
+    tokens = [row for run in runs for row in run["tokens"]]
+    check(tokens == runs[0]["unsplit_tokens"],
+          "the float32 control's greedy tokens over both ranks' rows differ "
+          "from the unsplit model's")
+    for r, run in enumerate(runs):
+        print(f"[fsdp] {TRAIN_ARCH} rank {r}: resting parameters "
+              f"{run['resting_bytes']} B ({run['allocated_bytes']} B "
+              f"allocated) of the whole model's {run['whole_bytes']} B; "
+              f"step p50 {run['step_p50_ms']:.1f} "
+              f"ms, train peak {run['train_peak_gb']:.3f} GB; prefill of "
+              f"its {SERVE_BATCH // TP_RANKS} rows {run['prefill_ms']:.3f} "
+              f"ms, decode p50 {run['decode_p50_ms']:.3f} ms, serve peak "
+              f"{run['serve_peak_gb']:.3f} GB; float32 control "
+              f"{run['control']}, its tokens over both ranks' rows equal "
+              f"the unsplit model's; card: {smi} (two processes share its "
+              f"SMs: no speed figure for the cut)")
+        for n in counts:
+            counts[n] += run["counts"][n]
     print(f"[tp] phase done in {time.perf_counter() - t_start:.1f} s; "
           f"launches over both ranks {counts}")
     return counts
@@ -3872,22 +4104,28 @@ DRYRUN_CELLS = (("rwkv6", "rwkv6-1.6b", "decode_32k", ["--both-meshes"],
                 ("mixtral", "mixtral-8x22b", "decode_32k", [],
                  {"16x16": 256}),
                 ("deepseek", MLA_ARCH, "decode_32k", [], {"16x16": 256}))
-LAUNCH_TIMEOUT_S = 600
+LAUNCH_TIMEOUT_S = 900              # from the start, beside phase 17
 # the split decode rows at 16x16: (FLOPs a rank at most, peak bytes at
 # most, the split plan's line); whole on every rank they read 1.951e11
 # FLOPs and 66.29 GiB (zamba2-7b), 2.319e10 (rwkv6-1.6b), 2.292e12 and
 # 269.21 GiB (mixtral-8x22b), 1.518e13 and 1267.92 GiB (deepseek-v3-671b);
-# split on the CPU the MoE rows read 1.539e11 and 24.62 GiB, 9.639e11 and
-# 97.65 GiB, gated at about twice that
+# split over ``model`` and cut over ``data`` (``dist.fsdp``) on the CPU
+# they read 1.219e10 and 3.43 GiB, 1.473e9, 1.539e11 and 8.51 GiB,
+# 9.639e11 and 24.46 GiB, gated at about twice that
 SPLIT_DECODE_GATES = {
-    "zamba2-7b": (2.44e10, 12 * 2 ** 30,
+    "zamba2-7b": (2.44e10, 7 * 2 ** 30,
                   "mamba2 split, attention split, mlp split, vocab split"),
     "rwkv6-1.6b": (2.9e9, None,
                    "time mix split, channel mix split, vocab split"),
-    "mixtral-8x22b": (3.1e11, 50 * 2 ** 30, "attention split, experts "
+    "mixtral-8x22b": (3.1e11, 17 * 2 ** 30, "attention split, experts "
                       "whole, expert mlp split, vocab split"),
-    MLA_ARCH: (1.93e12, 196 * 2 ** 30, "mla split, mlp split, experts "
+    MLA_ARCH: (1.93e12, 49 * 2 ** 30, "mla split, mlp split, experts "
                "split, expert mlp whole, vocab split")}
+# the reference's own peak a device of the MoE rows at 16x16, from its dry
+# run on the CPU (tests/test_torch_launch.py's REFERENCE_DECODE_PEAK): a
+# rank of the port's, its weights cut over ``data``, peaks at or below it
+REFERENCE_DECODE_PEAK = {"mixtral-8x22b": 16_214_567_462,
+                         MLA_ARCH: 42_597_803_382}
 # the split decode rows' argument bytes at 16x16: the reference's own dry
 # run of each cell (``repro.launch.dryrun.run_cell`` on the CPU) reads the
 # same, and they come from the specs, which the split does not move
@@ -3904,9 +4142,12 @@ def smi_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def phase_launch_tooling(out_dir: str) -> None:
-    """Phase 18 (see the module's docstring); the dry-run and roofline
-    JSON go to ``out_dir``."""
+def start_launch_tooling(out_dir: str) -> tuple[dict, float]:
+    """Phase 18's processes (see the module's docstring), started at once:
+    host work on fake tensors, which ``main`` runs beside phase 17 (whose
+    two ranks mostly wait on the card and on gloo).  Each writes its
+    output to ``<name>.log`` in ``out_dir``, and its JSON there.  -> (the
+    processes by name, the start time)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t_start = time.perf_counter()
@@ -3920,24 +4161,41 @@ def phase_launch_tooling(out_dir: str) -> None:
                     "--out", f"{out_dir}/cost.json"]
     runs["analysis"] = [sys.executable, "-m", "repro_torch.analysis",
                         "src/repro_torch"]
-    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT)
-             for name, cmd in runs.items()}
-    outs, walls = {}, {}
+    procs = {}
+    for name, cmd in runs.items():
+        with open(f"{out_dir}/{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                           stdout=log,
+                                           stderr=subprocess.STDOUT)
+    return procs, t_start
+
+
+def stop_processes(procs: dict) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_launch_tooling(out_dir: str, started: tuple[dict, float]) -> None:
+    """Phase 18 (see the module's docstring): waits for the processes of
+    ``start_launch_tooling`` (``started``), then gates their rows; the
+    dry-run and roofline JSON are in ``out_dir``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs, t_start = started
+    outs = {}
     try:
         for name, proc in procs.items():
-            outs[name], _ = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
-            walls[name] = time.perf_counter() - t_start
+            proc.wait(timeout=max(LAUNCH_TIMEOUT_S
+                                  - (time.perf_counter() - t_start), 1.0))
+            with open(f"{out_dir}/{name}.log") as log:
+                outs[name] = log.read()
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_processes(procs)
     for name, out in outs.items():
         tail = "\n".join(out.strip().splitlines()[-3:])
-        print(f"[launch] {name}: exit {procs[name].returncode} after "
-              f"{walls[name]:.1f} s; {tail}")
+        print(f"[launch] {name}: exit {procs[name].returncode}; {tail}")
     analysis = outs["analysis"]
     check(procs["analysis"].returncode == 0 and " 0 violations" in analysis,
           f"the port's analysis found something:\n{analysis[-3000:]}")
@@ -3976,6 +4234,25 @@ def phase_launch_tooling(out_dir: str) -> None:
           and one["bytes_per_device"]["peak"] <= 95e9
           and abs(half - 0.5) <= 0.01,
           f"the split train row is outside its gates: {one}, ratio {half}")
+    # its all-gathers are the weights' a layer at a time, no gather of the
+    # optimizer state (which rests in the parameters' blocks)
+    from repro_torch.configs import get_config
+    from repro_torch.dist.fsdp import weight_gather_bytes
+    from repro_torch.dist.sharding import CutMesh
+    from repro_torch.launch.shapes import TRAIN_MICROBATCHES
+    from repro_torch.models.model import build_model
+    micro = TRAIN_MICROBATCHES.get("qwen2-vl-2b", TRAIN_MICROBATCHES["default"])
+    for row, shape in ((one, {"data": 16, "model": 16}),
+                       (two, {"pod": 2, "data": 16, "model": 16})):
+        want = weight_gather_bytes(build_model(
+            get_config("qwen2-vl-2b"), "meta", seed=None,
+            mesh=CutMesh(shape)), micro)
+        got = row["collective_bytes"].get("all-gather")
+        print(f"[launch] qwen2-vl-2b x train_4k @ {row['mesh']}: all-gather "
+              f"{got:.0f} B a rank, the weights cut over data gathered a "
+              f"layer at a time {want} B")
+        check(got == want, f"qwen2-vl-2b x train_4k @ {row['mesh']} "
+              f"all-gathers {got} B, not the weights' {want} B")
     for arch, (flops, peak, plan) in SPLIT_DECODE_GATES.items():
         row = by_cell[(arch, "decode_32k", "16x16")]
         name = next(c[0] for c in DRYRUN_CELLS if c[1] == arch)
@@ -3988,6 +4265,14 @@ def phase_launch_tooling(out_dir: str) -> None:
               and plan in outs[name],
               f"the split {arch} decode row is outside its gates or does "
               f"not say '{plan}': {row}")
+    for arch, peak in REFERENCE_DECODE_PEAK.items():
+        row = by_cell[(arch, "decode_32k", "16x16")]
+        print(f"[launch] {arch} x decode_32k: peak "
+              f"{row['bytes_per_device']['peak']:.0f} B a rank, the "
+              f"reference's own device {peak} B")
+        check(row["bytes_per_device"]["peak"] <= peak,
+              f"{arch} x decode_32k peaks past the reference's device: "
+              f"{row['bytes_per_device']}")
     for arch, argument in DECODE_ARGUMENT.items():
         row = by_cell[(arch, "decode_32k", "16x16")]
         check(row["bytes_per_device"]["argument"] == argument
@@ -4073,10 +4358,15 @@ def main() -> int:
     paths.append(phase_serve(device, MLA_ARCH))
     train, scan_losses = phase_train(device)
     dist_counts, unsplit_losses = phase_dist(device)
-    tp_counts = phase_tp(device, unsplit_losses, scan_losses)
-    paths += [train, dist_counts, tp_counts]
     with tempfile.TemporaryDirectory() as out_dir:
-        phase_launch_tooling(out_dir)
+        started = start_launch_tooling(out_dir)
+        try:
+            tp_counts = phase_tp(device, unsplit_losses, scan_losses)
+        except BaseException:
+            stop_processes(started[0])
+            raise
+        phase_launch_tooling(out_dir, started)
+    paths += [train, dist_counts, tp_counts]
     for row in rows:
         row["launches"] = sum(path[row["name"]] for path in paths)
         row["train_launches"] = train[row["name"]]

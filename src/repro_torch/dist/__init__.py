@@ -12,6 +12,9 @@ parallelism.
                        bucketing parameters.
   * ``pipeline_par`` — GPipe-style pipeline parallelism over a ``stage``
                        mesh dimension by point-to-point sends on the ring.
+  * ``tensor_parallel`` — the weights split over the mesh's ``model`` axis.
+  * ``fsdp``         — the weights cut over the mesh's ``data`` axis,
+                       gathered a layer at a time for compute.
 
 The reference's ``compat`` module has no counterpart: it spells
 ``shard_map`` for several JAX versions, and ``torch.distributed`` has one

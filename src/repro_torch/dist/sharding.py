@@ -101,6 +101,24 @@ def axis_sizes(mesh) -> dict[str, int]:
     return dict(mesh.shape)
 
 
+class CutMesh:
+    """A stand-in for a ``DeviceMesh`` that ``Model.shard`` can cut a
+    model on, on the meta device or filled: rank ``rank`` of every axis of
+    ``shape`` (a mapping of axis sizes, read by ``axis_sizes``), and no
+    process group (cutting needs none; a model cut over ``data`` on it
+    raises at its first gather).  For counts and checks that need a rank's
+    blocks and no ranks."""
+
+    def __init__(self, shape: dict, rank: int = 0):
+        self.shape, self.rank = dict(shape), rank
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return self.rank
+
+
 def spec_for(shape: tuple[int, ...], logical_axes: tuple, rules: dict,
              mesh, report: ShardingReport | None = None,
              path: str = "?") -> P:
@@ -293,52 +311,14 @@ def place(t, sharding: NamedSharding, done: tuple = ()):
                                       else _contiguous_strides(shape)))
 
 
-def gather_whole(t, keep: tuple = ()):
-    """The value of a DTensor gathered over each sharded mesh dim but those
-    named in ``keep`` (an all-gather over each, or the local tensor itself
-    where every such dim has one rank): the whole value with ``keep``
-    empty, this rank's block along ``keep`` otherwise.  A plain tensor as
-    it is."""
-    if not isinstance(t, DTensor):
-        return t
-    mesh = t.device_mesh
-    names = mesh.mesh_dim_names or ()
-    gather = [i for i, pl in enumerate(t.placements)
-              if isinstance(pl, Shard) and mesh.size(i) > 1
-              and (names[i] if names else None) not in keep]
-    if not gather:
-        return t.to_local()
-    if not keep:
-        return t.full_tensor()
-    return t.redistribute(mesh, [Replicate() if i in gather else pl
-                                 for i, pl in enumerate(t.placements)]
-                          ).to_local()
-
-
 def place_tree(tree: dict, shardings: dict[str, NamedSharding],
-               resting: dict | None = None,
                done: dict[str, tuple] | None = None) -> dict:
     """Every leaf of ``tree`` (whole values, or blocks along the axes that
     ``done`` gives for its path, see ``_local_shard``) placed by its path's
-    entry of ``shardings`` (as ``tree_shardings`` keys them).  Where
-    ``resting`` (a tree of the same paths) already holds a DTensor of that
-    shape in those placements, the new shard is written into its local
-    tensor and that DTensor is kept (nothing is written where the value
-    was updated in place in it): no new DTensor a step."""
-    old = paths_from_tree(resting) if resting is not None else {}
+    entry of ``shardings`` (as ``tree_shardings`` keys them)."""
     done = done or {}
-
-    def one(path, t):
-        sh, prev, cut = shardings[path], old.get(path), done.get(path, ())
-        if not (isinstance(prev, DTensor)
-                and prev.shape == _whole_shape(t, sh, cut)
-                and prev.placements == sh.placements):
-            return place(t, sh, cut)
-        local, shard = prev.to_local(), _local_shard(t, sh, cut)
-        if shard.data_ptr() != local.data_ptr():
-            local.copy_(shard)
-        return prev
-    return tree_map_paths(tree, one)
+    return tree_map_paths(tree, lambda path, t: place(
+        t, shardings[path], done.get(path, ())))
 
 
 def batch_axes(mesh, batch_size: int | None = None) -> tuple[str, ...]:

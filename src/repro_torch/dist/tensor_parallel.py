@@ -589,7 +589,8 @@ def shard_model(model, mesh):
     regions that run split (``GQA.tp``, ``MLA.tp``, ``FFN.tp``,
     ``MoE.tp``, ``Mamba2.tp``, ``Rwkv6.tp``, ``Model.tp``); returns
     ``model``.  A model already cut, or a plan that splits nothing (one
-    model rank), is left as it is."""
+    model rank), is left as it is.  (The ``data`` cut comes after it:
+    ``dist.fsdp.shard_data``.)"""
     if getattr(model, "split_plan", None) is not None and model.split_plan.any:
         raise ValueError("the model is split already")
     plan = split_plan(model, mesh)
@@ -649,13 +650,22 @@ def _kv_index(cfg, mg: ModelGroup) -> tuple[int, ...]:
     return tuple(h // group for h in heads)
 
 
-def gather_cut(t: torch.Tensor, p, mg: ModelGroup) -> torch.Tensor:
+def gather_cut(t: torch.Tensor, p, mg: ModelGroup | None,
+               dg: ModelGroup | None = None) -> torch.Tensor:
     """The whole value of a tensor cut as parameter ``p`` is (``p`` itself,
-    its gradient, its optimizer state), gathered over the model group and
-    put back in place (``params.assemble``); as it is where ``p`` is not
+    its gradient, its optimizer state): gathered over the data group
+    ``dg`` where ``p`` is cut over ``data`` (``p.data_cut``), then over the
+    model group ``mg`` where it is cut over ``model`` (``p.cut``), each put
+    back in place (``params.assemble``); as it is where ``p`` is not
     cut."""
-    cut = getattr(p, "cut", None)
-    return t if cut is None else assemble(_gather_parts(t, mg), cut)
+    for cut, group in ((getattr(p, "data_cut", None), dg),
+                       (getattr(p, "cut", None), mg)):
+        if cut is not None:
+            if group is None:
+                raise ValueError("a tensor cut over a mesh axis needs that "
+                                 "axis's group to be gathered")
+            t = assemble(_gather_parts(t, group), cut)
+    return t
 
 
 def model_group(model) -> ModelGroup | None:

@@ -32,17 +32,20 @@ A row's numbers (the reference's keys):
   rank: the model split over ``model`` where the rules split it
   (``Model.shard``, ``dist.tensor_parallel``: heads, kv heads, MLP,
   Mamba2 and RWKV6 blocks, experts or each expert's columns, MLA's heads
-  and the vocabulary), on the rank's block of the batch over ``pod`` x
-  ``data`` (``train.loop.make_train_step``'s sharded step for ``train``;
+  and the vocabulary) and cut over ``data`` where they shard ``embed``
+  (``dist.fsdp``: each layer's weights gathered whole over ``data`` for
+  its compute, one layer at a time, the gradients reduce-scattered back),
+  on the rank's block of the batch over ``pod`` x ``data``
+  (``train.loop.make_train_step``'s sharded step for ``train``;
   ``prefill``/``decode`` on the rank's block, the cache split in kv, ssm
   or WKV heads where they split), a mixture of experts routing over the
   whole batch (``models.moe.routed_over`` the batch group, as the
   sharded step routes).  The reference's number is XLA's SPMD partition
-  of one program over the mesh, which also splits ``embed`` over
-  ``data`` (the port gathers weights sharded over ``data`` whole for
-  compute); the two are not expected to agree.  ``FlopCounterMode``
-  counts the products (matmuls, attention), not the elementwise work XLA
-  also counts.
+  of one program over the mesh, which also splits the products over
+  ``embed``, where the port computes each layer on its gathered weights;
+  the two are not expected to agree.  ``FlopCounterMode`` counts the
+  products (matmuls, attention), not the elementwise work XLA also
+  counts.
 - ``bytes_accessed``: the bytes every op of the step reads and writes (its
   tensor arguments and outputs; views move none): an unfused count.
 - ``collective_bytes``: the output bytes of every collective the step
@@ -52,9 +55,10 @@ A row's numbers (the reference's keys):
   dispatch mode that tracks every live fake tensor's storage
   (``LiveBytes``); ``output``: the bytes of the step's outputs it
   allocated; ``peak``: every live byte on the rank at the step's high-water
-  mark (the rank's compute copy of the parameters, its blocks where they
-  split over ``model`` and whole elsewhere, the resting shards, the batch,
-  the step's own tensors).
+  mark (the rank's parameters, its blocks over ``model`` and ``data``
+  where the rules cut them and whole elsewhere, one layer's weights
+  gathered over ``data`` at a time, the optimizer state's resting shards,
+  the batch, the step's own tensors).
 - ``lower_s`` / ``compile_s``: seconds to build the fake model, state and
   shardings / to run the fake step (no lowering or compiling exists here).
 """
@@ -66,7 +70,6 @@ import math
 import os
 import time
 import traceback
-import warnings
 import weakref
 
 import torch
@@ -74,6 +77,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import all_archs, get_config
+from repro_torch.dist import fsdp
 from repro_torch.dist.sharding import (ShardingReport, axis_sizes,
                                        batch_block, batch_sharding,
                                        default_rules, tree_shardings)
@@ -229,11 +233,7 @@ def _fake_mode():
     for t in tables:
         t.cache_clear()
     try:
-        with FakeTensorMode(), warnings.catch_warnings():
-            # ``place_tree`` compares data pointers, which fake tensors
-            # lack; it then copies, which moves nothing here
-            warnings.filterwarnings(
-                "ignore", message="Accessing the data pointer of FakeTensor")
+        with FakeTensorMode():
             yield
     finally:
         for t in tables:
@@ -374,13 +374,14 @@ def _lower_and_analyze(cfg, arch: str, shape, *, multi_pod: bool,
         "compile_s": round(t_step, 1),
     }
     if verbose:
-        _print_row(result, report, model.split_plan.describe())
+        _print_row(result, report, model.split_plan.describe() + "; "
+                   + fsdp.describe(model))
     return result
 
 
 def _print_row(result: dict, report: ShardingReport, split: str) -> None:
-    """The row, the model-axis split (``split_plan``) and the degraded
-    dims, on stdout."""
+    """The row, the model-axis split (``split_plan``) and the data-axis
+    cut (``fsdp.describe``), and the degraded dims, on stdout."""
     print(f"[{result['arch']} x {result['shape']} @ {result['mesh']}] "
           f"build {result['lower_s']:.0f}s step {result['compile_s']:.0f}s")
     mem = result["bytes_per_device"]

@@ -21,6 +21,12 @@ decode cache keeps the reference's stacked layout, and ``prefill`` and
 ``decode`` update it in place and return it; both run without autograd.
 ``forward`` runs with it, each layer under activation checkpointing when
 ``cfg.remat`` is set.
+
+Cut over a mesh's ``data`` axis (``Model.shard``, ``dist.fsdp``), every
+loop runs each layer on its parameters gathered whole over ``data``
+(``Model._gathered``), dropped when the layer ends, and gathers the
+embedding, the head, ``ln_f`` and the codebook tables where they are
+read.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, resolve_use_kernel
+from repro_torch.dist.fsdp import gathered, whole
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -132,6 +139,9 @@ class Model(nn.Module):
         # of every region's (``shard``); None: whole
         self.tp = None
         self.split_plan = None
+        # the ``data`` group where the weights are cut over ``data``
+        # (``shard``, ``dist.fsdp``); None: whole over it
+        self.fsdp = None
         alloc = torch.device("meta") if on_meta else dev
         ctx = InitCtx(cfg.dtype, alloc)
         # the reference's ``embed`` leaf (``embed`` is the method here);
@@ -175,15 +185,29 @@ class Model(nn.Module):
         return self
 
     def shard(self, mesh) -> "Model":
-        """Split the model over ``mesh``'s ``model`` axis where the
-        reference's rules shard its weights
-        (``dist.tensor_parallel.shard_model``): each rank keeps its block
-        of every split weight, of a model filled whole (``init`` after
+        """Split the model over ``mesh`` where the reference's rules shard
+        its weights: over the ``model`` axis
+        (``dist.tensor_parallel.shard_model``), then over ``data``
+        (``dist.fsdp.shard_data``: the ``embed`` dim).  Each rank keeps its
+        block of every cut weight, of a model filled whole (``init`` after
         ``shard`` draws whole tensors too, and ``load_reference_params``
-        cuts the reference's).  A mesh without a ``model`` axis of more
-        than one rank leaves it whole.  Returns the model."""
+        cuts the reference's).  An axis of one rank, or none, cuts
+        nothing.  Returns the model."""
+        from repro_torch.dist.fsdp import shard_data
         from repro_torch.dist.tensor_parallel import shard_model
-        return shard_model(self, mesh)
+        return shard_data(shard_model(self, mesh), mesh)
+
+    def _gathered(self, module: nn.Module):
+        """Context: ``module``'s parameters gathered whole over ``data``
+        while it runs (``dist.fsdp.gathered``); as they are where the
+        model is not cut over ``data``.  Every loop runs each layer
+        under it."""
+        return gathered(module, self.fsdp)
+
+    def _whole(self, p: torch.Tensor) -> torch.Tensor:
+        """A model-level parameter (the embedding, the head, ``ln_f``, the
+        codebook tables) gathered over ``data`` where it is read."""
+        return whole(p, self.fsdp)
 
     def param_axes(self) -> dict[str, tuple]:
         """{the reference's parameter path: logical axes}, the second value
@@ -199,11 +223,12 @@ class Model(nn.Module):
         ``patch_embeds`` (B, n, d) replace the first n positions."""
         cfg = self.cfg
         if cfg.n_codebooks:
-            x = self._lookup(self.embed_cb[0], tokens[..., 0])
+            tables = self._whole(self.embed_cb)
+            x = self._lookup(tables[0], tokens[..., 0])
             for c in range(1, cfg.n_codebooks):
-                x = x + self._lookup(self.embed_cb[c], tokens[..., c])
+                x = x + self._lookup(tables[c], tokens[..., c])
         else:
-            x = self._lookup(self.embedding, tokens)
+            x = self._lookup(self._whole(self.embedding), tokens)
         if cfg.vision_stub and patch_embeds is not None:
             n = patch_embeds.shape[1]
             if n > x.shape[1]:
@@ -221,13 +246,14 @@ class Model(nn.Module):
         """(B, S, V), or (B, S, CB, V) with codebooks (one head each); with
         the vocabulary split over ``model``, this rank's columns of V."""
         cfg = self.cfg
-        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        x = rms_norm(x, self._whole(self.ln_f), cfg.norm_eps)
         if self.tp is not None:
             x = self.tp.enter(x)
         if cfg.n_codebooks:     # einsum('bsd,cdv->bscv'), a product a stream
-            y = x.flatten(0, 1) @ self.head_cb                # (CB, B*S, V)
+            y = x.flatten(0, 1) @ self._whole(self.head_cb)   # (CB, B*S, V)
             return y.permute(1, 0, 2).unflatten(0, x.shape[:2])
-        head = self.embedding.T if cfg.tie_embeddings else self.head
+        head = (self._whole(self.embedding).T if cfg.tie_embeddings
+                else self._whole(self.head))
         return x @ head
 
     def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -295,14 +321,17 @@ class Model(nn.Module):
         load-balance loss summed over the layers in layer order (0.0
         without experts).  Each layer (a
         hybrid's Mamba2 layer with the shared block it is followed by)
-        runs under ``_layer_runner``."""
+        runs under ``_layer_runner``, its parameters gathered over
+        ``data`` inside it (``_gathered``)."""
         cfg = self.cfg
         x = self.embed(tokens, patch_embeds)
         positions = self._positions(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self._dense:
             def dense(layer, x):
-                y, _, a = _dense_layer_fwd(layer, x, cfg, positions, "train")
+                with self._gathered(layer):
+                    y, _, a = _dense_layer_fwd(layer, x, cfg, positions,
+                                               "train")
                 return y, a
             run = self._layer_runner(dense)
             for name in self._dense_stacks():
@@ -312,17 +341,20 @@ class Model(nn.Module):
             return self.logits(x), aux
 
         def rwkv(layer, x):
-            x = x + rwkv_mod.rwkv6_time_mix(
-                layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg)
-            return x + rwkv_mod.rwkv6_channel_mix(
-                layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg)
+            with self._gathered(layer):
+                x = x + rwkv_mod.rwkv6_time_mix(
+                    layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg)
+                return x + rwkv_mod.rwkv6_channel_mix(
+                    layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg)
 
         def mamba(layer, x, shared: bool):
-            x = x + ssm_mod.mamba2_forward(
-                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
+            with self._gathered(layer):
+                x = x + ssm_mod.mamba2_forward(
+                    layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg)
             if shared:
-                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
-                                           positions, "train")
+                with self._gathered(self.shared_attn):
+                    x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
+                                               positions, "train")
             return x
 
         run = self._layer_runner(rwkv if cfg.rwkv else mamba)
@@ -410,17 +442,18 @@ class Model(nn.Module):
         (prefill)."""
         cfg = self.cfg
         for i, layer in enumerate(self.layers):
-            h, wkv, sh_t = rwkv_mod.rwkv6_time_mix(
-                layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
-                shift_state=layers["shift_t"][i] if carry else None,
-                wkv_state=layers["wkv"][i] if carry else None,
-                return_state=True)
-            x = x + h
-            h, sh_c = rwkv_mod.rwkv6_channel_mix(
-                layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
-                shift_state=layers["shift_c"][i] if carry else None,
-                return_state=True)
-            x = x + h
+            with self._gathered(layer):
+                h, wkv, sh_t = rwkv_mod.rwkv6_time_mix(
+                    layer.time, rms_norm(x, layer.ln1, cfg.norm_eps), cfg,
+                    shift_state=layers["shift_t"][i] if carry else None,
+                    wkv_state=layers["wkv"][i] if carry else None,
+                    return_state=True)
+                x = x + h
+                h, sh_c = rwkv_mod.rwkv6_channel_mix(
+                    layer.time, rms_norm(x, layer.ln2, cfg.norm_eps), cfg,
+                    shift_state=layers["shift_c"][i] if carry else None,
+                    return_state=True)
+                x = x + h
             for key, new in (("wkv", wkv), ("shift_t", sh_t),
                              ("shift_c", sh_c)):
                 layers[key][i].copy_(new)
@@ -445,21 +478,25 @@ class Model(nn.Module):
         if self._dense:
             for name in self._dense_stacks():
                 for i, layer in enumerate(getattr(self, name)):
-                    x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                               "prefill", _at(cache[name], i))
+                    with self._gathered(layer):
+                        x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                                   "prefill",
+                                                   _at(cache[name], i))
             return self._last_logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
-            h, ssm_state, conv_state = ssm_mod.mamba2_forward(
-                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
-                return_state=True)
+            with self._gathered(layer):
+                h, ssm_state, conv_state = ssm_mod.mamba2_forward(
+                    layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                    return_state=True)
             x = x + h
             layers["ssm"][i].copy_(ssm_state)
             layers["conv"][i].copy_(conv_state)
             if self._shared_due(i):
-                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
-                                           positions, "prefill",
-                                           _at(cache["shared_attn"], attn_idx))
+                with self._gathered(self.shared_attn):
+                    x, _, _ = _dense_layer_fwd(
+                        self.shared_attn, x, cfg, positions, "prefill",
+                        _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
         return self._last_logits(x), cache
 
@@ -487,21 +524,25 @@ class Model(nn.Module):
         if self._dense:
             for name in self._dense_stacks():
                 for i, layer in enumerate(getattr(self, name)):
-                    x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                               "decode", _at(cache[name], i))
+                    with self._gathered(layer):
+                        x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
+                                                   "decode",
+                                                   _at(cache[name], i))
             return self._last_logits(x), cache
         attn_idx = 0
         for i, layer in enumerate(self.layers):
-            h, ssm_state, conv_state = ssm_mod.mamba2_decode(
-                layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
-                layers["ssm"][i], layers["conv"][i])
+            with self._gathered(layer):
+                h, ssm_state, conv_state = ssm_mod.mamba2_decode(
+                    layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                    layers["ssm"][i], layers["conv"][i])
             x = x + h
             layers["ssm"][i].copy_(ssm_state)
             layers["conv"][i].copy_(conv_state)
             if self._shared_due(i):
-                x, _, _ = _dense_layer_fwd(self.shared_attn, x, cfg,
-                                           positions, "decode",
-                                           _at(cache["shared_attn"], attn_idx))
+                with self._gathered(self.shared_attn):
+                    x, _, _ = _dense_layer_fwd(
+                        self.shared_attn, x, cfg, positions, "decode",
+                        _at(cache["shared_attn"], attn_idx))
                 attn_idx += 1
         return self._last_logits(x), cache
 
@@ -510,9 +551,10 @@ def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0,
                 mesh=None) -> Model:
     """A model on ``device``, filled from ``seed`` (None: left
     uninitialised, for ``load_reference_params``); with ``mesh``, split
-    over its ``model`` axis (``Model.shard``) and filled after, as whole.
-    A split model is made on the meta device and cut there, so that a
-    rank never holds the whole model's parameters, only its blocks."""
+    over its ``model`` axis and cut over its ``data`` axis
+    (``Model.shard``) and filled after, as whole.  A split model is made
+    on the meta device and cut there, so that a rank never holds the whole
+    model's parameters, only its blocks."""
     if mesh is None:
         model = Model(cfg, device)
     else:

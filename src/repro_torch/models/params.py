@@ -82,8 +82,21 @@ class InitCtx:
 
 def whole_shape(p) -> tuple[int, ...]:
     """The shape of the whole parameter of which ``p`` is this rank's
-    block (``cut_params``), or ``p``'s own shape."""
+    block (``cut_params``, over ``model``, ``data`` or both), or ``p``'s
+    own shape."""
     return getattr(p, "whole_shape", tuple(p.shape))
+
+
+# the records of the two cuts a parameter may take: its block over the
+# mesh's ``model`` axis (tensor parallelism, ``dist.tensor_parallel``) and
+# over ``data`` (FSDP, ``dist.fsdp``), on different dims; a block is cut
+# by ``model`` first, then by ``data``
+CUTS = ("cut", "data_cut")
+
+
+def _cuts(p) -> list[tuple]:
+    return [c for c in (getattr(p, key, None) for key in CUTS)
+            if c is not None]
 
 
 def cut_ranges(cut, size: int) -> list[tuple[int, int]]:
@@ -120,12 +133,12 @@ def _take(whole, dim: int, ranges: list[tuple[int, int]]):
 
 def local_part(p, whole):
     """This rank's block of ``whole`` (a tensor or array of
-    ``whole_shape(p)``) as ``p`` was cut from it (``cut_ranges``):
-    ``whole`` itself where ``p`` is not cut."""
-    cut = getattr(p, "cut", None)
-    if cut is None:
-        return whole
-    return _take(whole, cut[0], cut_ranges(cut, whole.shape[cut[0]]))
+    ``whole_shape(p)``) as ``p`` was cut from it, over ``model`` and then
+    over ``data`` (``cut_ranges``): ``whole`` itself where ``p`` is not
+    cut."""
+    for cut in _cuts(p):
+        whole = _take(whole, cut[0], cut_ranges(cut, whole.shape[cut[0]]))
+    return whole
 
 
 def assemble(parts: list, cut) -> torch.Tensor:
@@ -141,14 +154,18 @@ def assemble(parts: list, cut) -> torch.Tensor:
 
 
 @torch.no_grad()
-def cut_params(module: nn.Module, cuts: dict[str, tuple]) -> None:
+def cut_params(module: nn.Module, cuts: dict[str, tuple],
+               record: str = "cut") -> None:
     """Replace each parameter named in ``cuts`` by its block: ``{name:
     (dim, index, n)}`` keeps block ``index`` of ``n`` equal blocks along
     ``dim``, and ``(dim, index, n, segments)`` that block of each segment
     (``cut_ranges``), a copy, so that the whole tensor can be freed.  The
-    new parameter keeps the init rule, the logical axes, the segments and
-    ``requires_grad``, and records ``whole_shape`` and ``cut``
-    (``local_part``)."""
+    new parameter keeps the init rule, the logical axes, the segments,
+    ``requires_grad`` and an earlier cut, and records ``whole_shape`` and
+    the cut under ``record`` (one of ``CUTS``: ``"cut"`` over ``model``,
+    ``"data_cut"`` over ``data``; ``local_part``)."""
+    if record not in CUTS:
+        raise ValueError(f"a cut is recorded as one of {CUTS}, not {record!r}")
     for name, cut in cuts.items():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module
@@ -161,12 +178,13 @@ def cut_params(module: nn.Module, cuts: dict[str, tuple]) -> None:
             _take(old, dim, cut_ranges(cut, old.shape[dim])).clone(),
             requires_grad=old.requires_grad)
         _keep_records(old, new)
-        new.whole_shape, new.cut = tuple(old.shape), tuple(cut)
+        new.whole_shape = whole_shape(old)
+        setattr(new, record, tuple(cut))
         setattr(owner, leaf, new)
 
 
 # what ``InitCtx.param`` and ``cut_params`` record on a parameter
-_RECORDS = ("init_rule", "logical_axes", "segments", "whole_shape", "cut")
+_RECORDS = ("init_rule", "logical_axes", "segments", "whole_shape") + CUTS
 
 
 def _keep_records(old, new) -> None:
@@ -197,16 +215,16 @@ def materialize(module: nn.Module, device) -> None:
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter of ``module`` by its recorded rule, in
     registration order, from ``generator`` (on the parameters' device).  A
-    parameter cut by ``cut_params`` is drawn whole, as the unsplit model
-    draws it, and keeps its block: the generator's stream, and so every
-    value, is the unsplit model's."""
+    parameter cut by ``cut_params`` (over ``model``, ``data`` or both) is
+    drawn whole, as the unsplit model draws it, and keeps its block: the
+    generator's stream, and so every value, is the unsplit model's."""
     for _, p in module.named_parameters():
         init, scale = p.init_rule
         if init == "zeros":
             p.zero_()
         elif init == "ones":
             p.fill_(1.0)
-        elif p.dtype == torch.float32 and not hasattr(p, "cut"):
+        elif p.dtype == torch.float32 and not _cuts(p):
             # drawn in place: no float32 copy
             torch.randn(p.shape, generator=generator, out=p)
             p.mul_(scale)
@@ -332,8 +350,9 @@ def load_reference_params(model: nn.Module, flat: dict[str, Any]) -> None:
     ``flat`` is ``paths_from_tree(params)`` of the reference's tree with
     numpy arrays as leaves, named as ``split_reference_paths`` maps them.
     Every parameter of the model must be filled exactly once, each with its
-    own shape (the whole one, for a parameter ``cut_params`` cut: it takes
-    its block of the reference's array); values are cast to the
+    own shape (the whole one, for a parameter ``cut_params`` cut over
+    ``model``, ``data`` or both: it takes its block of the reference's
+    array); values are cast to the
     parameter's dtype.
     """
     own = dict(model.named_parameters())
@@ -363,7 +382,7 @@ def opt_state_from_reference(state: dict, cfg, device,
     the moments in ``cfg.moment_dtype`` and the master in
     ``cfg.master_dtype`` (any object with those two attributes, such as an
     ``AdamWConfig``).  With ``model``, each leaf is the block of its
-    parameter's cut (``local_part``), as a split model's state holds it."""
+    parameter's cuts (``local_part``), as a split model's state holds it."""
     own = dict(model.named_parameters()) if model is not None else {}
 
     def part(name, a):

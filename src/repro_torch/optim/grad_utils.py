@@ -28,33 +28,37 @@ def _sum_of_squares(leaves) -> torch.Tensor | None:
     return total
 
 
-def global_norm(tree, split: frozenset = frozenset(), reduce=None
-                ) -> torch.Tensor:
+def global_norm(tree, sums: dict | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32: one sum a leaf,
     added up in sorted path order (the reference's per-leaf sums; its
     stacked layer leaves are one sum each, the port's per-layer leaves one
     each, so the two agree to float32 rounding, not bit for bit).
 
-    ``split``: the paths of leaves that are each rank's block of a tensor
-    split over ranks (a tensor-parallel gradient).  Their sum of squares is
-    summed over the ranks once by ``reduce`` (an in-place all-reduce),
-    and every other leaf, the same on every rank, counts once."""
-    leaves = _leaves(tree)
-    if not split:
-        return torch.sqrt(_sum_of_squares(leaves.values()))
-    ours = _sum_of_squares(v for k, v in leaves.items() if k in split)
-    rest = _sum_of_squares(v for k, v in leaves.items() if k not in split)
-    total = reduce(ours.contiguous())
-    return torch.sqrt(total if rest is None else total + rest)
+    ``sums``: for the path of each leaf that is a rank's block of a tensor
+    cut over ranks (a tensor-parallel or an FSDP gradient), the in-place
+    all-reduces that sum a value over the ranks it is cut over, one a mesh
+    axis.  The leaves that share their all-reduces add their squares up
+    first, in sorted path order, and each such part is summed through
+    them once; every other leaf, the same on every rank, counts once."""
+    sums = sums or {}
+    parts: dict[tuple, list] = {}
+    for name, leaf in _leaves(tree).items():
+        parts.setdefault(sums.get(name, ()), []).append(leaf)
+    total = None
+    for fns, leaves in parts.items():
+        part = _sum_of_squares(leaves)
+        for fn in fns:
+            part = fn(part.contiguous())
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float, split: frozenset = frozenset(),
-                        reduce=None
+def clip_by_global_norm(tree, max_norm: float, sums: dict | None = None
                         ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """(the leaves scaled by min(1, max_norm / norm), each in its own dtype,
-    as a flat dict of paths; the norm before clipping).  ``split`` and
-    ``reduce``: as ``global_norm`` takes them."""
-    norm = global_norm(tree, split, reduce)
+    as a flat dict of paths; the norm before clipping).  ``sums``: as
+    ``global_norm`` takes it."""
+    norm = global_norm(tree, sums)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {name: (leaf.detach().to(torch.float32) * scale).to(leaf.dtype)
             for name, leaf in _leaves(tree).items()}, norm

@@ -8,9 +8,11 @@ them in place (``optim.adamw_update``).  The LM kernels take part in the
 step through their ``torch.autograd.Function``s (``kernels.ops``): forward
 on the card, backward by the plain version's vector-Jacobian product.
 With a device mesh the step is data parallel over its batch axes
-(``pod`` and ``data``) and, for a model split by ``Model.shard``, tensor
-parallel over its ``model`` axis (``make_train_step``'s ``mesh``), its
-optimizer state resting as DTensors.
+(``pod`` and ``data``) and, for a model cut by ``Model.shard``, tensor
+parallel over its ``model`` axis and fully sharded over ``data``
+(``make_train_step``'s ``mesh``), its optimizer state resting as
+DTensors in the reference's placements, each rank's local tensors the
+blocks of its parameters.
 """
 from __future__ import annotations
 
@@ -22,11 +24,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.dist.collectives import (BucketPlan, bucketed_allreduce,
                                           flatten_grads, process_group,
                                           unflatten_grads)
+from repro_torch.dist.fsdp import DATA
 from repro_torch.dist.sharding import (axis_sizes, batch_block,
-                                       default_rules, gather_whole,
+                                       default_rules,
                                        place_tree, tree_map_paths,
                                        tree_shardings)
 from repro_torch.dist.tensor_parallel import MODEL, ModelGroup, model_group
@@ -124,33 +129,44 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
       program over the whole microbatch does (``models.moe.routed_over``
       the batch group: the whole microbatch's capacity, drops and
       load-balance loss);
-    - a model split over ``model`` (``Model.shard``) computes its block's
-      gradients tensor-parallel, each rank its own block of every split
-      parameter's gradient (``dist.tensor_parallel``); a model left whole
-      computes them whole on every model rank;
+    - the model must be cut on the mesh as its rules shard it
+      (``build_model(mesh=)`` or ``Model.shard``): a parameter whose spec
+      names a mesh axis of more than one rank that it is not cut over
+      raises ValueError;
+    - a model split over ``model`` computes its block's gradients
+      tensor-parallel, each rank its own block of every split parameter's
+      gradient (``dist.tensor_parallel``);
+    - a model cut over ``data`` (``Model.shard``, ``dist.fsdp``) gathers
+      each layer's weights whole over ``data`` for its compute and
+      reduce-scatters their gradients back, so that such a leaf's gradient
+      leaves the backward as the rank's block, summed over ``data``;
     - each rank computes through the path above, on plain local tensors
       (the kernels launch by raw pointer and take no DTensor);
     - the gradients are averaged over the batch axes only: flattened to
-      float32 (``collectives.flatten_grads``), summed over the batch group
-      by ``collectives.bucketed_allreduce`` with ``plan`` (default: one
-      chunk), divided by its size and cast back to each parameter's dtype;
-      a split gradient is never summed over ``model``; the loss and the
-      metrics are averaged likewise;
-    - the clip's global norm sums each split leaf's squares over ``model``
-      once and each replicated leaf's once;
+      float32 (``collectives.flatten_grads``), the leaves whole over
+      ``data`` summed over the batch group by
+      ``collectives.bucketed_allreduce`` with ``plan`` (default: one
+      chunk), the leaves cut over ``data`` over ``pod`` alone (where the
+      mesh has it; the backward summed them over ``data``), each divided
+      by the batch group's size and cast back to each parameter's dtype;
+      a gradient is never summed over ``model``; the loss and the metrics
+      are averaged likewise;
+    - the clip's global norm sums each leaf's squares over the axes it is
+      cut on (``model``, ``data``, both) once and each other leaf's once;
+    - the module's parameters, the compute copy in their own dtype, rest
+      as each rank's blocks: cut over ``model`` where ``Model.shard``
+      split them and over ``data`` where it cut them, whole otherwise;
+      their reference placements (``step.shardings["params"]``) are where
+      ``elastic.reshard_state`` puts them;
     - the optimizer state (the float32 master copy of the parameters, the
       moments, the step) rests between steps as DTensors in the
       placements ``tree_shardings(opt_state, opt_state_axes(axes))``
       gives on the parameters' whole shapes (``step.shardings
       ["opt_state"]``; a state of plain tensors, each leaf shaped as its
-      parameter, is placed on the first call, or by ``step.place``), and
-      is gathered for the update over every mesh axis but ``model`` where
-      its parameter is split, whole otherwise; AdamW then updates each
-      rank's block in place;
-    - the module's parameters, the compute copy in their own dtype, are
-      each rank's blocks where split and whole otherwise; their placements
-      (``step.shardings["params"]``) are where ``elastic.reshard_state``
-      puts them.
+      parameter, is placed on the first call, or by ``step.place``): each
+      rank's local tensor is shaped as its block of the parameter, so
+      AdamW updates the local tensors in place and no leaf is gathered or
+      placed again.
 
     On one rank every sum, division and cast above is exact, so the
     sharded step equals the unsharded one bit for bit.
@@ -187,44 +203,84 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     whole = {n: torch.empty(whole_shape(p), dtype=p.dtype, device="meta")
              for n, p in params.items()}
     p_shard = tree_shardings(whole, axes, mesh, rules)
+    # the mesh axes each parameter is cut over: ``model`` where
+    # ``Model.shard`` split it, ``data`` where it cut it
+    cut_over = {n: (MODEL,) * hasattr(p, "cut") +
+                (DATA,) * hasattr(p, "data_cut") for n, p in params.items()}
+    for n, sh in p_shard.items():
+        uncut = [a for a in _spec_axes(sh.spec)
+                 if sizes[a] > 1 and a not in cut_over[n]]
+        if uncut:
+            raise ValueError(
+                f"{n} rests whole over {uncut}, which the mesh's rules "
+                f"shard it over ({sh.spec}): cut the model on this mesh "
+                f"(build_model(mesh=) or Model.shard) before making its "
+                f"sharded step")
+    done = {f"{k}.{n}": cut_over[n] for k in ("m", "v", "master")
+            for n in params}
     shapes = {"m": whole, "v": whole, "master": whole,
               "step": torch.empty(())}
     o_shard = tree_shardings(shapes, opt_state_axes(axes), mesh, rules)
-    # the leaves that are this rank's blocks over ``model``, by path
-    split = frozenset(n for n, p in params.items() if hasattr(p, "cut"))
-    done = {f"{k}.{n}": (MODEL,) for k in ("m", "v", "master") for n in split}
     mg = model_group(model)
+    pod = (mesh, "pod") if "pod" in sizes else None
 
     def sum_over_model(t):
         return tp_all_reduce(t, mg)
 
+    def sum_over_data(t):
+        return tp_all_reduce(t, model.fsdp)
+
+    sum_over = {MODEL: sum_over_model, DATA: sum_over_data}
+    sums = {n: tuple(sum_over[a] for a in cut) for n, cut in cut_over.items()
+            if cut}
+
+    def averaged(grads: dict, over) -> dict:
+        """``grads`` summed over the group ``over`` (None: as they are)
+        and divided by the batch group's size, through float32; ``grads``
+        is emptied once flattened, so that its tensors can be freed."""
+        if not grads:
+            return {}
+        flat, spec = flatten_grads(grads)
+        grads.clear()
+        if over is not None:
+            flat = bucketed_allreduce(flat, plan, over)
+        return unflatten_grads(flat.div_(n_batch), spec)
+
+    def place(opt_state: dict) -> dict:
+        return place_tree(opt_state, o_shard, done=done)
+
     def sharded(opt_state: dict, batch: dict):
+        if not isinstance(opt_state["step"], DTensor):
+            opt_state = place(opt_state)
         rows = next(iter(batch.values())).shape[0]
         index, count = batch_block(mesh, rows)
         local = {k: rank_rows(v, n_micro, index, count)
                  for k, v in batch.items()}
         with routed_over(model, batch_routing(group, index, count)):
             loss, metrics, grads = accumulate_grads(model, local, n_micro)
-        flat, spec = flatten_grads(grads)
-        del grads
-        flat = bucketed_allreduce(flat, plan, group).div_(n_batch)
-        grads = unflatten_grads(flat, spec)
-        del flat
-        grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm, split,
-                                           sum_over_model)
+        # in the parameters' order, the same on every rank
+        blocks = {n: grads.pop(n) for n in params if DATA in cut_over[n]}
+        grads = averaged(grads, group)
+        grads.update(averaged(blocks, pod))
+        grads, gnorm = clip_by_global_norm(grads, tcfg.max_grad_norm, sums)
         scalars = torch.stack([loss, metrics["ce"], metrics["aux"]])
         dist.all_reduce(scalars, group=process_group(group))
         loss, ce, aux = (scalars / n_batch).unbind()
-        gathered = tree_map_paths(opt_state, lambda path, t: gather_whole(
-            t, done.get(path, ())))
-        gathered, metrics = update(gathered, grads, gnorm, loss,
-                                   dict(metrics, ce=ce, aux=aux))
-        return place_tree(gathered, o_shard, opt_state, done), metrics
+        resting = tree_map_paths(opt_state, lambda _, t: t.to_local())
+        new, metrics = update(resting, grads, gnorm, loss,
+                              dict(metrics, ce=ce, aux=aux))
+        resting["step"].copy_(new["step"])
+        return opt_state, metrics
 
     sharded.shardings = {"params": p_shard, "opt_state": o_shard}
-    sharded.place = lambda opt_state: place_tree(opt_state, o_shard,
-                                                 done=done)
+    sharded.place = place
     return sharded
+
+
+def _spec_axes(spec) -> tuple:
+    """The mesh axes a partition spec names, in order."""
+    return tuple(a for entry in spec
+                 for a in ((entry,) if isinstance(entry, str) else entry or ()))
 
 
 def rank_rows(t: torch.Tensor, n_micro: int, index: int, count: int

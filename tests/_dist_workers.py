@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # a collective that waits past this raises in the worker, so that one
 # failing rank cannot leave the others waiting beyond the test's timeout
@@ -189,12 +190,14 @@ def _mini_cfg():
 
 
 def data_parallel_step(rank: int, world: int, directory: Path) -> None:
-    """The sharded step on a (world, 1) mesh, each rank computing its
-    block of the batch, against the one-process step on the whole batch:
-    loss, gradient norm and every parameter after 2 steps within 1e-6 of
-    their scale (float32; the two sum the batch's gradients in other
+    """The sharded step on a (world, 1) mesh, the model cut over ``data``
+    (``build_model(mesh=)``), each rank computing its block of the batch,
+    against the one-process step on the whole batch: loss, gradient norm
+    and every parameter after 2 steps, gathered over ``data``, within 1e-6
+    of their scale (float32; the two sum the batch's gradients in other
     orders).  The optimizer state rests sharded over ``data``, and every
-    rank's parameters stay equal."""
+    rank's parameters that the rules leave whole over ``data`` stay
+    equal."""
     from torch.distributed.tensor import DTensor
     from repro_torch.dist.collectives import BucketPlan
     from repro_torch.launch.mesh import make_host_mesh
@@ -209,7 +212,7 @@ def data_parallel_step(rank: int, world: int, directory: Path) -> None:
     assert tuple(mesh.shape) == (world, 1)
     runs = []
     for m in (None, mesh):
-        model = build_model(cfg, "cpu", seed=None)
+        model = build_model(cfg, "cpu", seed=None, mesh=m)
         _, opt = init_train_state(model, 0, tcfg)
         step = make_train_step(model, tcfg, mesh=m, plan=BucketPlan(3, 2, 2))
         log = []
@@ -223,9 +226,14 @@ def data_parallel_step(rank: int, world: int, directory: Path) -> None:
     for a, b in zip(got, want):
         for key in ("loss", "ce", "grad_norm", "lr_scale"):
             assert abs(a[key] - b[key]) <= 1e-6 * abs(b[key]), (key, a, b)
+    got = _gathered(shard, {n: p.detach()
+                            for n, p in shard.named_parameters()})
+    assert any(hasattr(p, "data_cut") for p in shard.parameters())
     for (name, p), q in zip(shard.named_parameters(), whole.parameters()):
-        gap = (p - q).abs().max().item()
+        gap = (got[name] - q).abs().max().item()
         assert gap <= 1e-6 * q.abs().max().item(), (name, gap)
+        if hasattr(p, "data_cut"):
+            continue
         mine = p.detach().clone()
         dist.broadcast(mine, 0)
         assert torch.equal(mine, p.detach()), f"{name} differs across ranks"
@@ -238,7 +246,10 @@ def data_parallel_step(rank: int, world: int, directory: Path) -> None:
 def reshard_round_trip(rank: int, world: int, directory: Path) -> None:
     """``recover`` onto a (world, 1) mesh: each rank's local shards are
     its blocks of the saved tensors, and ``full_tensor`` gives them back
-    bit for bit."""
+    bit for bit.  Then the optimizer state of a model cut over ``data`` on
+    the (world, 1) mesh, after a step, gathered whole (the (1, 1) layout:
+    what one rank holds), saved and recovered onto (world, 1): each
+    recovered shard equals the cut state's block bit for bit."""
     from repro_torch.checkpoint.ckpt import save_checkpoint
     from repro_torch.models.model import build_model
     from repro_torch.models.params import reference_paths
@@ -258,6 +269,50 @@ def reshard_round_trip(rank: int, world: int, directory: Path) -> None:
         assert torch.equal(got.full_tensor(), want.detach()), path
     wq = state["layers.attn.wq"]           # ("layers", "embed", ...): data
     assert wq.to_local().shape[1] == wq.shape[1] // world
+    _fsdp_state_round_trip(rank, world, directory)
+
+
+def _fsdp_state_round_trip(rank: int, world: int, directory: Path) -> None:
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import reference_path, reference_paths
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import elastic
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step, opt_state_axes)
+    mesh = make_host_mesh(device="cpu")
+    model = build_model(_mini_cfg(), "cpu", seed=None, mesh=mesh)
+    tcfg = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32),
+                       warmup_steps=1, total_steps=4)
+    _, opt = init_train_state(model, 0, tcfg)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    tok = torch.from_numpy(np.random.default_rng(9).integers(
+        0, model.cfg.vocab_size, (4, 16)))
+    opt, _ = step(opt, {"tokens": tok, "labels": tok})
+    keys = ("m", "v", "master")
+    cut = {k: {n: t.to_local() for n, t in opt[k].items()} for k in keys}
+    whole = {k: reference_paths(_gathered(model, cut[k])) for k in keys}
+    ckpt = directory / "ckpt_fsdp"
+    if rank == 0:
+        save_checkpoint(str(ckpt), 1, whole)
+    dist.barrier()
+    axes = opt_state_axes(model.param_axes())
+    _, back_mesh, state = elastic.recover(str(ckpt), axes, list(range(world)),
+                                          model_parallel=1, device="cpu")
+    assert tuple(back_mesh.shape) == (world, 1)
+    n_cut = 0
+    for k in keys:
+        for name, block in cut[k].items():
+            path, stacked = reference_path(name)
+            got = state[f"{k}.{path}"]
+            assert torch.equal(got.full_tensor(), whole[k][path]), (k, path)
+            local = got.to_local()
+            if stacked:
+                local = local[int(name.split(".")[1])]
+            assert torch.equal(local, block), (k, name)
+            n_cut += hasattr(model.get_parameter(name), "data_cut")
+    assert n_cut > 0
 
 
 
@@ -266,7 +321,8 @@ def reshard_round_trip(rank: int, world: int, directory: Path) -> None:
 # the reference's unsplit results, computed with JAX in its own process,
 # to ``tp_case.pkl`` in the group's directory; each rank cuts its shard of
 # the reference's weights through ``load_reference_params``)
-TP_MESHES = {2: [((1, 2), ("data", "model"))],
+# (2, 1) and (2, 2) cut the weights over ``data`` too (``dist.fsdp``)
+TP_MESHES = {2: [((1, 2), ("data", "model")), ((2, 1), ("data", "model"))],
              4: [((2, 2), ("data", "model")),
                  ((2, 1, 2), ("pod", "data", "model"))]}
 
@@ -295,11 +351,12 @@ def _tp_model(case: dict, mesh, dtype=torch.float32):
 
 def _gathered(model, tensors: dict) -> dict:
     """{name: whole value} of tensors keyed and cut as the model's
-    parameters are (parameters, gradients, optimizer leaves)."""
+    parameters are (parameters, gradients, optimizer leaves), over
+    ``data`` and ``model`` (``gather_cut``)."""
     from repro_torch.dist.tensor_parallel import gather_cut, model_group
     mg = model_group(model)
     own = dict(model.named_parameters())
-    return {n: (t if mg is None else gather_cut(t, own[n], mg))
+    return {n: gather_cut(t, own[n], mg, model.fsdp)
             for n, t in tensors.items()}
 
 
@@ -343,8 +400,12 @@ def _tp_forward(case: dict, mesh, tag: str) -> None:
     loss.backward()
     assert abs(loss.item() - case["loss"]) <= 1e-5 * abs(case["loss"]), \
         (tag, loss.item(), case["loss"])
+    # every rank ran the whole batch: a block cut over ``data`` left the
+    # backward summed over the data ranks' equal gradients
+    n_data = model.fsdp.size if model.fsdp is not None else 1
     grads = _gathered(model, {n: (p.grad if p.grad is not None
                                   else torch.zeros_like(p))
+                                 / (n_data if hasattr(p, "data_cut") else 1)
                               for n, p in model.named_parameters()})
     got = reference_paths(grads)
     assert sorted(got) == sorted(case["grads"])
@@ -449,12 +510,13 @@ def _check_cache_share(model, cache: dict) -> None:
 
 
 def tp_parity(rank: int, world: int, directory: Path) -> None:
-    """For every mesh of ``TP_MESHES[world]``: the forward, the loss and
-    the gradients, three train steps, and prefill with decode of the split
-    model against the reference's unsplit results (``tp_case.pkl``)."""
+    """For every mesh of ``TP_MESHES[world]`` (or of the case's own
+    ``meshes``): the forward, the loss and the gradients, three train
+    steps, and prefill with decode of the split model against the
+    reference's unsplit results (``tp_case.pkl``)."""
     from torch.distributed.device_mesh import init_device_mesh
     case = _tp_case(directory)
-    for shape, names in TP_MESHES[world]:
+    for shape, names in case.get("meshes", TP_MESHES[world]):
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
         tag = f"{case['name']} on {shape}"
         _tp_forward(case, mesh, tag)
@@ -517,11 +579,12 @@ def tp_norm(rank: int, world: int, directory: Path) -> None:
     params = dict(model.named_parameters())
     split = frozenset(n for n, p in params.items() if hasattr(p, "cut"))
     assert split and len(split) < len(params)
-    got = global_norm(params, split, lambda t: all_reduce(t, mg))
+    def over_model(t):
+        return all_reduce(t, mg)
+    got = global_norm(params, {n: (over_model,) for n in split})
     want = global_norm(dict(whole.named_parameters()))
     assert abs(got.item() - want.item()) <= 1e-6 * want.item(), (got, want)
-    twice = global_norm(params, frozenset(params),
-                        lambda t: all_reduce(t, mg))
+    twice = global_norm(params, {n: (over_model,) for n in params})
     assert twice.item() > want.item() * (1 + 1e-3), (twice, want)
 
 
@@ -535,9 +598,10 @@ def pod_split_step(rank: int, world: int, directory: Path) -> None:
     """On a (2, 2, 1) ``("pod", "data", "model")`` mesh: each rank's rows
     are the block the reference's ``batch_sharding`` over ``("pod",
     "data")`` gives it (ranks that differ only in ``pod`` hold different
-    rows), and 2 sharded steps equal the one-process step on the whole
-    batch (loss, gradient norm and every parameter within 1e-6 of their
-    scale, float32)."""
+    rows), and 2 sharded steps of the model cut over ``data``
+    (``build_model(mesh=)``) equal the one-process step on the whole batch
+    (loss, gradient norm and every parameter, gathered over ``data``,
+    within 1e-6 of their scale, float32)."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.dist.sharding import batch_block, batch_sharding
     from repro_torch.models.model import build_model
@@ -566,9 +630,12 @@ def pod_split_step(rank: int, world: int, directory: Path) -> None:
     tcfg = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32, lr=1e-3,
                                        eps=1.0),
                        warmup_steps=1, total_steps=6)
+    import pytest
+    with pytest.raises(ValueError, match="rests whole over"):
+        make_train_step(build_model(cfg, "cpu", seed=None), tcfg, mesh=mesh)
     runs = []
     for m in (None, mesh):
-        model = build_model(cfg, "cpu", seed=None)
+        model = build_model(cfg, "cpu", seed=None, mesh=m)
         _, opt = init_train_state(model, 0, tcfg)
         step = make_train_step(model, tcfg, mesh=m)
         log = []
@@ -586,8 +653,11 @@ def pod_split_step(rank: int, world: int, directory: Path) -> None:
     for a, b in zip(got, want):
         for key in ("loss", "ce", "grad_norm", "lr_scale"):
             assert abs(a[key] - b[key]) <= 1e-6 * abs(b[key]), (key, a, b)
-    for (name, p), q in zip(sharded.named_parameters(), whole.parameters()):
-        gap = (p - q).abs().max().item()
+    got = _gathered(sharded, {n: p.detach()
+                              for n, p in sharded.named_parameters()})
+    assert any(hasattr(p, "data_cut") for p in sharded.parameters())
+    for name, q in whole.named_parameters():
+        gap = (got[name] - q).abs().max().item()
         assert gap <= 1e-6 * q.abs().max().item(), (name, gap)
 
 
@@ -649,8 +719,9 @@ def moe_routing_step(rank: int, world: int, directory: Path) -> None:
     aux within 1e-5, the gradient norm within the case's bound, every
     gathered parameter at ``test_train_steps_match_reference``'s
     tolerance); then the first step's loss, aux and every gradient,
-    gathered over ``model`` and averaged over the batch group as the step
-    averages them, within ``test_loss_and_grads_match_reference``'s
+    gathered over ``model`` and ``data`` and averaged over the batch
+    group as the step averages them (a block cut over ``data`` arrives
+    summed over it), within ``test_loss_and_grads_match_reference``'s
     bound."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models.params import (opt_state_from_reference,
@@ -698,8 +769,13 @@ def moe_routing_step(rank: int, world: int, directory: Path) -> None:
         loss, metrics, grads = accumulate_grads(model, local, case["micro"])
     pg = process_group(group)
     n = dist.get_world_size(pg)
+    # a block cut over ``data`` left the backward summed over the data
+    # ranks, which are the whole batch group here (no ``pod``)
+    cut = [g for name, g in grads.items()
+           if hasattr(model.get_parameter(name), "data_cut")]
     for t in [loss, metrics["aux"], *grads.values()]:
-        dist.all_reduce(t, group=pg)
+        if not any(t is c for c in cut):
+            dist.all_reduce(t, group=pg)
         t.div_(n)
     for key, val in (("loss", loss), ("aux", metrics["aux"])):
         assert abs(val.item() - case[key]) <= 1e-5 * abs(case[key]), \
@@ -792,3 +868,187 @@ def tp_moe_router_faults(rank: int, world: int, directory: Path) -> None:
     assert gaps["right"] <= tol, (gaps, tol)
     assert tol < min(gaps["aux summed"], gaps["gates without copy_to"]), \
         (gaps, tol)
+
+
+# --------------------------- FSDP over data ---------------------------- #
+# (the workers of ``tests/test_torch_fsdp.py``: the test writes the arch
+# to ``fsdp.json`` in the group's directory)
+def _fsdp_setup(directory: Path):
+    """(the smoke config of the case's arch in float32, the (world, 1)
+    mesh, the model cut over ``data`` from seed 3, the unsplit model from
+    the same seed)."""
+    import json
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    arch = json.loads((directory / "fsdp.json").read_text())["arch"]
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype=torch.float32)
+    mesh = init_device_mesh("cpu", (dist.get_world_size(), 1),
+                            mesh_dim_names=("data", "model"))
+    return (cfg, mesh, build_model(cfg, "cpu", seed=3, mesh=mesh),
+            build_model(cfg, "cpu", seed=3))
+
+
+def _smoke_tokens(cfg, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    shape = (4, 16, cfg.n_codebooks) if cfg.n_codebooks else (4, 16)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+
+
+def fsdp_exact(rank: int, world: int, directory: Path) -> None:
+    """The case's smoke config cut over a (world, 1) mesh's ``data`` axis
+    against the unsplit model from the same seed:
+
+    - every parameter whose spec names ``data`` keeps its block, 1 /
+      world of its whole elements, and every other parameter stays whole;
+      gathered (``gather_cut``) each equals the unsplit one bit for bit;
+    - on this rank's rows (``batch_block``) the forward logits, the loss
+      (remat on, the layers checkpointed), a prefill's and two decode
+      steps' logits and the cache equal the unsplit model's bit for bit:
+      each layer runs on its gathered weights, which are the unsplit ones;
+    - the backward: a parameter left whole takes the unsplit model's
+      gradient on these rows, and a block cut over ``data`` the sum over
+      the ranks of the unsplit gradients, at the block (the
+      reduce-scatter), each within 1e-5 of its scale (float32: the gather
+      nodes change the order in which autograd adds a tensor's gradient
+      terms, ~1e-7 of the scale)."""
+    from repro_torch.dist.sharding import batch_block
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import whole_shape
+    cfg, mesh, model, whole = _fsdp_setup(directory)
+    assert model.fsdp is not None and model.fsdp.size == world
+    n_cut = 0
+    for name, p in model.named_parameters():
+        spec = model.split_plan.specs[name]
+        dims = [d for d, e in enumerate(spec) if e == "data"]
+        if dims:
+            assert p.data_cut == (dims[0], rank, world), (name, p.data_cut)
+            assert p.numel() * world == int(np.prod(whole_shape(p))), name
+            n_cut += 1
+        else:
+            assert not hasattr(p, "data_cut"), name
+            assert tuple(p.shape) == whole_shape(p), name
+    assert n_cut > 0
+    got = _gathered(model, {n: p.detach() for n, p in model.named_parameters()})
+    for name, q in whole.named_parameters():
+        assert torch.equal(got[name], q.detach()), name
+    tok = _smoke_tokens(cfg, 0)
+    pe = None
+    if cfg.vision_stub:
+        pe = torch.from_numpy(np.random.default_rng(1).normal(
+            0, 0.02, (4, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    index, count = batch_block(mesh, tok.shape[0])
+    assert count == world
+    rows = slice(index * 4 // count, (index + 1) * 4 // count)
+    mine = {"tokens": tok[rows], "labels": tok[rows]}
+    if pe is not None:
+        mine["patch_embeds"] = pe[rows]
+    with torch.no_grad():
+        a, _ = model(mine["tokens"], mine.get("patch_embeds"))
+        b, _ = whole(mine["tokens"], mine.get("patch_embeds"))
+    assert torch.equal(a, b), "forward logits"
+    caches = []
+    for m in (model, whole):
+        cache = m.init_cache(mine["tokens"].shape[0], 24)
+        lg, cache = m.prefill(mine["tokens"], cache, mine.get("patch_embeds"))
+        seq = [lg]
+        for _ in range(2):
+            lg, cache = m.decode(lg[:, -1].argmax(-1)[:, None], cache)
+            seq.append(lg)
+        caches.append((seq, cache))
+    (seq_a, cache_a), (seq_b, cache_b) = caches
+    assert all(torch.equal(x, y) for x, y in zip(seq_a, seq_b)), "serve"
+    from repro_torch.models.params import paths_from_tree
+    flat_b = paths_from_tree(cache_b)
+    for path, t in paths_from_tree(cache_a).items():
+        assert torch.equal(t, flat_b[path]), path
+    assert cfg.remat
+    losses = []
+    for m in (model, whole):
+        m.requires_grad_(True)
+        loss, _ = loss_fn(m, mine)
+        loss.backward()
+        losses.append(loss.detach())
+    assert torch.equal(*losses), "loss"
+    for (name, p), q in zip(model.named_parameters(), whole.parameters()):
+        want = q.grad
+        if hasattr(p, "data_cut"):
+            want = want.contiguous().clone()
+            dist.all_reduce(want)
+            dim = p.data_cut[0]
+            want = want.narrow(dim, rank * p.shape[dim], p.shape[dim])
+        _close_to_scale(p.grad.numpy(), want.numpy(), 1e-5, name)
+
+
+class _AllGathers(TorchDispatchMode):
+    """Keeps the arguments and outputs of every all-gather (``c10d`` and
+    ``_c10d_functional`` ops) dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.gathered = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in ("c10d", "_c10d_functional") and \
+                "gather" in func.overloadpacket.__name__:
+            self.gathered.append((args, out))
+        return out
+
+
+def _tensors_in(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors_in(x)]
+    return []
+
+
+def fsdp_step_state(rank: int, world: int, directory: Path) -> None:
+    """The sharded step of the case's model cut over ``data``: the AdamW
+    state rests as DTensors in its parameters' blocks (each leaf's local
+    tensor shaped as its parameter, 1 / world of the whole over ``data``),
+    and a step updates those local tensors in place: the same DTensors
+    after it, and no all-gather reads or writes a tensor of ``m``, ``v``
+    or ``master`` (the step's all-gathers are the layers' weights')."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    cfg, mesh, model, _ = _fsdp_setup(directory)
+    tcfg = TrainConfig(opt=AdamWConfig(moment_dtype=torch.float32),
+                       microbatches=2, warmup_steps=1, total_steps=6)
+    _, opt = init_train_state(model, 0, tcfg)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    tok = _smoke_tokens(cfg, 5)
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.vision_stub:
+        batch["patch_embeds"] = torch.zeros((4, cfg.n_patches, cfg.d_model))
+    opt, _ = step(opt, batch)
+    params = dict(model.named_parameters())
+    keys = ("m", "v", "master")
+    before = {k: dict(opt[k]) for k in keys}
+    storages = set()
+    for k in keys:
+        for name, t in opt[k].items():
+            assert isinstance(t, DTensor), (k, name)
+            local = t.to_local()
+            assert local.shape == params[name].shape, (k, name)
+            if hasattr(params[name], "data_cut"):
+                assert t.shape[params[name].data_cut[0]] == \
+                    world * local.shape[params[name].data_cut[0]]
+            storages.add(local.untyped_storage().data_ptr())
+    mode = _AllGathers()
+    with mode:
+        opt, met = step(opt, batch)
+    assert np.isfinite(float(met["loss"]))
+    assert mode.gathered, "the step gathered no weight"
+    for args, out in mode.gathered:
+        for t in _tensors_in(args) + _tensors_in(out):
+            assert t.untyped_storage().data_ptr() not in storages, \
+                "an all-gather moved the optimizer state"
+    for k in keys:
+        for name, t in opt[k].items():
+            assert t is before[k][name], (k, name)
+    assert int(opt["step"].to_local()) == 2
+

@@ -143,18 +143,11 @@ def test_dryrun_global_cache_restores_whole_heads():
     7,296 channels and the shared block's 32 kv heads, as the unsplit
     model's cache has them, while the rank keeps 7, 456 and 2."""
     from repro_torch.launch.dryrun import _global_cache
+    from repro_torch.dist.sharding import CutMesh
     from repro_torch.models.params import paths_from_tree
-
-    class Mesh:
-        shape = {"data": 16, "model": 16}
-
-        def get_group(self, axis):
-            return None
-
-        def get_local_rank(self, axis):
-            return 0
     cfg = get_config("zamba2-7b")
-    model = build_model(cfg, "meta", seed=None, mesh=Mesh())
+    model = build_model(cfg, "meta", seed=None,
+                        mesh=CutMesh({"data": 16, "model": 16}))
     whole = build_model(cfg, "meta", seed=None)
     got = {k: tuple(v.shape) for k, v in _global_cache(model, 128,
                                                        32768).items()}
@@ -171,15 +164,26 @@ def test_dryrun_global_cache_restores_whole_heads():
 
 # the MoE family's split decode rows at 16x16: (the whole rank's FLOPs and
 # peak bytes before the split, the gates chip_smoke.py's phase 18 holds the
-# split row to, its argument bytes, its split plan's line)
+# split row to, its argument bytes, its split plan's line).  Cut over
+# ``data`` too (``dist.fsdp``) the rows read 1.539e11 FLOPs and 8.51 GiB
+# (mixtral-8x22b), 9.639e11 and 24.46 GiB (deepseek-v3-671b) on the CPU;
+# the peak gates are about twice that
 MOE_DECODE = {
-    "mixtral-8x22b": (2.292e12, 269.21 * 2 ** 30, 3.1e11, 50 * 2 ** 30,
+    "mixtral-8x22b": (2.292e12, 269.21 * 2 ** 30, 3.1e11, 17 * 2 ** 30,
                       8_697_844_736, "attention split, experts whole, "
                       "expert mlp split, vocab split"),
     "deepseek-v3-671b": (1.518e13, 1267.92 * 2 ** 30, 1.93e12,
-                         196 * 2 ** 30, 24_174_346_132, "mla split, mlp "
+                         49 * 2 ** 30, 24_174_346_132, "mla split, mlp "
                          "split, experts split, expert mlp whole, vocab "
                          "split")}
+# the reference's own peak a device of the same rows at 16x16, read from
+# its dry run on the CPU (``repro.launch.dryrun.run_cell("mixtral-8x22b",
+# "decode_32k", multi_pod=False)``; deepseek-v3-671b by
+# ``_lower_and_analyze(..., act_spec=None)``, as
+# ``test_dryrun_deepseek_argument_bytes_equal_the_reference`` lowers it):
+# XLA's program holds each weight cut over ``data``
+REFERENCE_DECODE_PEAK = {"mixtral-8x22b": 16_214_567_462,
+                         "deepseek-v3-671b": 42_597_803_382}
 
 
 @pytest.fixture(scope="module")
@@ -213,6 +217,20 @@ def test_dryrun_moe_decode_rows_split(moe_decode_rows, arch):
     assert r["collective_bytes"]["all-gather"] > 0, r
     assert r["bytes_per_device"]["argument"] == argument, r
     assert plan in log, log
+
+
+@pytest.mark.parametrize("arch", list(REFERENCE_DECODE_PEAK))
+def test_dryrun_moe_decode_peak_within_the_reference(moe_decode_rows, arch):
+    """A rank of the port's mixtral-8x22b and deepseek-v3-671b x
+    decode_32k at 16x16, its weights cut over ``data`` and gathered one
+    layer at a time, peaks at or below the reference's own device
+    (``REFERENCE_DECODE_PEAK``); whole over ``data`` they read 24.62 and
+    97.65 GiB."""
+    row = moe_decode_rows[0][arch]
+    assert "error" not in row, row
+    assert 0 < row["bytes_per_device"]["peak"] <= REFERENCE_DECODE_PEAK[arch], \
+        (row["bytes_per_device"], REFERENCE_DECODE_PEAK[arch])
+    assert "data axis 16: " in moe_decode_rows[1], moe_decode_rows[1]
 
 
 def test_dryrun_deepseek_argument_bytes_equal_the_reference(moe_decode_rows):
@@ -360,10 +378,14 @@ def test_cost_mode_extrapolation_equals_a_full_depth_count(shape):
         assert cost[key] == full[key], key
     # minitron-4b's smoke MLP (144) and vocabulary (512) split 16 ways over
     # ``model``: every shape all-reduces their partial sums (and a train
-    # step its gradients) and all-gathers (the last logits, or the
-    # optimizer state over ``data``)
+    # step its gradients) and all-gathers (the weights cut over ``data``,
+    # a layer at a time, and the last logits); a train step reduce-scatters
+    # the cut weights' gradients back to their blocks
     assert full["collective_bytes_total"] > 0
-    assert set(full["collective_bytes"]) == {"all-reduce", "all-gather"}
+    want = {"all-reduce", "all-gather"}
+    if shape == "train_4k":
+        want.add("reduce-scatter")
+    assert set(full["collective_bytes"]) == want
 
 
 # ------------------------------------------------------------------ #

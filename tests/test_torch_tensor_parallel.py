@@ -365,21 +365,6 @@ def test_split_plan_follows_spec_for(arch, n):
     assert f"model axis {n}" in plan.describe()
 
 
-class _RankMesh(_FakeMesh):
-    """A stand-in mesh that ``shard_model`` can cut on: rank ``rank`` of
-    its ``model`` axis, no process group (cutting needs none)."""
-
-    def __init__(self, shape: dict, rank: int = 0):
-        super().__init__(shape)
-        self.rank = rank
-
-    def get_group(self, axis):
-        return None
-
-    def get_local_rank(self, axis):
-        return self.rank
-
-
 @pytest.mark.parametrize("n", [2, 16])
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
 def test_ssm_families_split_as_spec_for(arch, n):
@@ -388,10 +373,12 @@ def test_ssm_families_split_as_spec_for(arch, n):
     attention and MLP, the vocabulary; the time mix, the channel mix, the
     vocabulary), exactly the leaves whose ``spec_for`` shards a dim over
     ``model`` are cut, and each cut block's shape is the spec's block
-    (zamba2-7b's w_in at 16: 911 of 14,576 columns, 448 + 448 + 8 + 7)."""
+    (zamba2-7b's w_in at 16: 911 of 14,576 columns, 448 + 448 + 8 + 7);
+    the mesh's ``data`` axis of 16 cuts the dims the spec shards over
+    ``data`` too (``dist.fsdp``)."""
     cfg = get_config(arch, "full")
     model = build_model(cfg, "meta", seed=None)
-    mesh = _RankMesh({"data": 16, "model": n})
+    mesh = sharding.CutMesh({"data": 16, "model": n})
     model.shard(mesh)
     plan = model.split_plan
     assert all(plan.runs().values()), \
@@ -409,8 +396,10 @@ def test_ssm_families_split_as_spec_for(arch, n):
         assert plan.specs[name] == spec, name
         shape = getattr(p, "whole_shape", tuple(p.shape))
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-        block = [s // n if e == "model" else s for s, e in zip(shape, spec)]
+        block = [s // n if e == "model" else s // 16 if e == "data" else s
+                 for s, e in zip(shape, spec)]
         assert hasattr(p, "cut") == ("model" in spec), name
+        assert hasattr(p, "data_cut") == ("data" in spec), name
         assert list(p.shape) == block, (name, tuple(p.shape), block)
         n_cut += hasattr(p, "cut")
     assert n_cut > 0
@@ -445,7 +434,7 @@ def test_mamba2_index_map_cut_round_trips(n):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     whole = build_model(cfg, "cpu", seed=1)
     ranks = [build_model(cfg, "meta", seed=None).shard(
-        _RankMesh({"data": 1, "model": n}, r)) for r in range(n)]
+        sharding.CutMesh({"data": 1, "model": n}, r)) for r in range(n)]
     checked = 0
     for name, w in whole.named_parameters():
         own = [m.get_parameter(name) for m in ranks]

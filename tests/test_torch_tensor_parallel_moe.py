@@ -26,7 +26,7 @@ from repro_torch.dist.tensor_parallel import (AttentionSplit, ExpertSplit,
                                               MlaSplit, MlpSplit)
 from repro_torch.models.model import build_model
 from test_torch_tensor_parallel import (GROUP_TIMEOUT_S, MOE_CONFIGS,
-                                        _RankMesh, _reference, _write_case)
+                                        _reference, _write_case)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -90,11 +90,13 @@ def test_moe_families_split_as_spec_for(arch, n):
     16 experts, 8 heads, 128 shared and 1,152 dense FFN columns, 8,080
     vocabulary rows a rank; mixtral at 16: its 8 experts whole, 1,024
     ``expert_mlp`` columns, 3 q heads over its 8 whole kv heads, 2,048
-    vocabulary rows), the regions run split as the plan says, and the
-    caches stay whole."""
+    vocabulary rows; each a block over ``model``, its ``data`` cut
+    undone), the regions run split as the plan says, and the caches stay
+    whole.  The mesh's ``data`` axis of 16 cuts the dims the spec shards
+    over ``data`` too (``dist.fsdp``)."""
     cfg = get_config(arch, "full")
     model = build_model(cfg, "meta", seed=None)
-    mesh = _RankMesh({"data": 16, "model": n})
+    mesh = sharding.CutMesh({"data": 16, "model": n})
     model.shard(mesh)
     plan = model.split_plan
     rules = sharding.default_rules(False)
@@ -104,13 +106,17 @@ def test_moe_families_split_as_spec_for(arch, n):
         spec = sharding.spec_for(shape, p.logical_axes, rules, mesh)
         assert plan.specs[name] == spec, name
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-        block = [s // n if e == "model" else s for s, e in zip(shape, spec)]
+        block = [s // n if e == "model" else s // 16 if e == "data" else s
+                 for s, e in zip(shape, spec)]
         assert hasattr(p, "cut") == ("model" in spec), name
+        assert hasattr(p, "data_cut") == ("data" in spec), name
         assert list(p.shape) == block, (name, tuple(p.shape), block)
         n_cut += hasattr(p, "cut")
+        over_model = [s * 16 if e == "data" else s
+                      for s, e in zip(p.shape, spec)]
         for leaf, want in BLOCKS.get((arch, n), {}).items():
             if name.endswith("." + leaf) or name == leaf:
-                assert tuple(p.shape) == want, (name, tuple(p.shape), want)
+                assert tuple(over_model) == want, (name, over_model, want)
     assert n_cut > 0
     runs = plan.runs()
     assert runs == RUNS[(arch, n)], runs
