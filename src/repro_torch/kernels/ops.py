@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.trace import span
 
 
 def cluster_assign(X: torch.Tensor, C: torch.Tensor
@@ -117,19 +118,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Plain torch on every device, as in the reference, which has no kernel
     for it: a memory-bound gather and reduce over the cache.
     """
-    B, Sq, Hq, D = q.shape
-    _, L, Hkv, _ = k_cache.shape
-    g = Hq // Hkv
-    f32 = torch.float32
-    qr = q.reshape(B, Sq, Hkv, g, D)
-    scores = torch.einsum("bqhgd,blhd->bhgql", qr.to(f32),
-                          k_cache.to(f32)) / torch.sqrt(
-                              torch.tensor(D, dtype=f32))
-    mask = valid_mask[:, None, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, ref.NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bhgql,blhd->bqhgd", probs, v_cache.to(f32))
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    with span("repro.decode_attend"):
+        B, Sq, Hq, D = q.shape
+        _, L, Hkv, _ = k_cache.shape
+        g = Hq // Hkv
+        f32 = torch.float32
+        qr = q.reshape(B, Sq, Hkv, g, D)
+        scores = torch.einsum("bqhgd,blhd->bhgql", qr.to(f32),
+                              k_cache.to(f32)) / torch.sqrt(
+                                  torch.tensor(D, dtype=f32))
+        mask = valid_mask[:, None, None, None, :]
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores, ref.NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhgql,blhd->bqhgd", probs, v_cache.to(f32))
+        return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def _ssd_scan(x, dt, A, B, C, **kw):

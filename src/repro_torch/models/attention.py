@@ -27,6 +27,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope
 from repro_torch.models.params import InitCtx
+from repro_torch.trace import span
 
 
 class GQA(nn.Module):
@@ -79,12 +80,15 @@ def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig,
         q = q + p.bq[None, None]
         k = k + bk[None, None]
         v = v + bv[None, None]
-    if cfg.mrope:                   # positions (3, B, S)
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    with span("repro.rope"):
+        if cfg.mrope:               # positions (3, B, S)
+            q = apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -106,8 +110,9 @@ def _attended(p, kv: torch.Tensor) -> torch.Tensor:
 
 def _attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     attend = ops.flash_attention if cfg.use_kernel else ops.plain_attention
-    return attend(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                  window=cfg.sliding_window)
+    with span("repro.attend"):
+        return attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal=True, window=cfg.sliding_window)
 
 
 def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig,
@@ -132,9 +137,10 @@ def gqa_prefill(p: GQA, x: torch.Tensor, cfg: ModelConfig,
         v_w = torch.roll(v[:, -L:], shifts=roll, dims=1)
     else:
         k_w, v_w = k, v
-    cache["k"][:, :k_w.shape[1]] = k_w.to(cache["k"].dtype)
-    cache["v"][:, :v_w.shape[1]] = v_w.to(cache["v"].dtype)
-    cache["len"].fill_(S)
+    with span("repro.cache_write"):
+        cache["k"][:, :k_w.shape[1]] = k_w.to(cache["k"].dtype)
+        cache["v"][:, :v_w.shape[1]] = v_w.to(cache["v"].dtype)
+        cache["len"].fill_(S)
     return _out(p, _attend(q, _attended(p, k), _attended(p, v), cfg)), cache
 
 
@@ -150,8 +156,9 @@ def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     L = cache["k"].shape[1]
     pos = cache["len"][0].long()                      # current length
     slot = pos % L if cfg.sliding_window else torch.clamp(pos, max=L - 1)
-    cache["k"].index_copy_(1, slot.reshape(1), k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot.reshape(1), v.to(cache["v"].dtype))
+    with span("repro.cache_write"):
+        cache["k"].index_copy_(1, slot.reshape(1), k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot.reshape(1), v.to(cache["v"].dtype))
     n_valid = torch.clamp(pos + 1, max=L)
     valid = torch.arange(L, device=x.device)[None, :] < n_valid
     o = ops.decode_attention(q, _attended(p, cache["k"]),

@@ -8,13 +8,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.trace import span
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
-    return (x * weight.float()).to(dt)
+    with span("repro.rms_norm"):
+        dt = x.dtype
+        x = x.float()
+        x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+        return (x * weight.float()).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:

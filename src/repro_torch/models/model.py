@@ -46,6 +46,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import (InitCtx, init_params, materialize,
                                        param_axes, whole_shape)
+from repro_torch.trace import span
 
 
 class MambaLayer(nn.Module):
@@ -96,17 +97,19 @@ def _dense_layer_fwd(p: DenseLayer, x: torch.Tensor, cfg: ModelConfig,
     """-> (x, the cache (updated in place; None in "train"), MoE aux)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     fwd = _ATTENTION["mla" if cfg.attn_type == "mla" else "gqa"][mode]
-    if mode == "train":
-        a, new_cache = fwd(p.attn, h, cfg, positions), None
-    else:
-        a, new_cache = fwd(p.attn, h, cfg, positions, cache)
+    with span("repro.attention"):
+        if mode == "train":
+            a, new_cache = fwd(p.attn, h, cfg, positions), None
+        else:
+            a, new_cache = fwd(p.attn, h, cfg, positions, cache)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    if hasattr(p, "moe"):
-        f, aux = moe_mod.moe_forward(p.moe, h, cfg)
-    else:
-        f, aux = moe_mod.ffn_forward(p.ffn, h), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+    with span("repro.mlp"):
+        if hasattr(p, "moe"):
+            f, aux = moe_mod.moe_forward(p.moe, h, cfg)
+        else:
+            f, aux = moe_mod.ffn_forward(p.ffn, h), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
     return x + f, new_cache, aux
 
 
@@ -221,21 +224,22 @@ class Model(nn.Module):
         """tokens (B, S), or (B, S, CB) with codebooks: the CB streams'
         embeddings summed in stream order.  With the vision stub,
         ``patch_embeds`` (B, n, d) replace the first n positions."""
-        cfg = self.cfg
-        if cfg.n_codebooks:
-            tables = self._whole(self.embed_cb)
-            x = self._lookup(tables[0], tokens[..., 0])
-            for c in range(1, cfg.n_codebooks):
-                x = x + self._lookup(tables[c], tokens[..., c])
-        else:
-            x = self._lookup(self._whole(self.embedding), tokens)
-        if cfg.vision_stub and patch_embeds is not None:
-            n = patch_embeds.shape[1]
-            if n > x.shape[1]:
-                raise ValueError(f"{n} patch embeddings do not fit a sequence "
-                                 f"of {x.shape[1]} positions")
-            x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
-        return x
+        with span("repro.embed"):
+            cfg = self.cfg
+            if cfg.n_codebooks:
+                tables = self._whole(self.embed_cb)
+                x = self._lookup(tables[0], tokens[..., 0])
+                for c in range(1, cfg.n_codebooks):
+                    x = x + self._lookup(tables[c], tokens[..., c])
+            else:
+                x = self._lookup(self._whole(self.embedding), tokens)
+            if cfg.vision_stub and patch_embeds is not None:
+                n = patch_embeds.shape[1]
+                if n > x.shape[1]:
+                    raise ValueError(f"{n} patch embeddings do not fit a "
+                                     f"sequence of {x.shape[1]} positions")
+                x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+            return x
 
     def _lookup(self, table: torch.Tensor, ids: torch.Tensor):
         """``table[ids]``; with the vocabulary split over ``model``, each
@@ -259,8 +263,9 @@ class Model(nn.Module):
     def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
         """``logits`` of the last position, (B, 1, V) or (B, 1, CB, V),
         whole: gathered over ``model`` where the vocabulary splits."""
-        lg = self.logits(x[:, -1:])
-        return lg if self.tp is None else self.tp.gather(lg)
+        with span("repro.head"):
+            lg = self.logits(x[:, -1:])
+            return lg if self.tp is None else self.tp.gather(lg)
 
     def _positions(self, tokens: torch.Tensor, offset: int = 0):
         """(B, S) position ids; (3, B, S) text-like ones under M-RoPE."""
@@ -382,38 +387,39 @@ class Model(nn.Module):
         heads, ssm heads and the conv channels, WKV heads) that its
         weights keep; with ``whole``, the unsplit model's sizes.
         ``device``: default the model's."""
-        cfg = self.cfg
-        dev = self.device if device is None else device
+        with span("repro.init_cache"):
+            cfg = self.cfg
+            dev = self.device if device is None else device
 
-        def size(p, dim):      # the rank's share of a dim, or the whole
-            return whole_shape(p)[dim] if whole else p.shape[dim]
-        if cfg.rwkv:
-            return {"layers": rwkv_mod.rwkv6_state_init(
-                cfg, batch, device=dev, n=cfg.n_layers,
-                heads=size(self.layers[0].time.u, 0))}
-        if self._dense:
-            if cfg.attn_type == "mla":
-                return {name: attn.mla_cache_init(
+            def size(p, dim):      # the rank's share of a dim, or the whole
+                return whole_shape(p)[dim] if whole else p.shape[dim]
+            if cfg.rwkv:
+                return {"layers": rwkv_mod.rwkv6_state_init(
+                    cfg, batch, device=dev, n=cfg.n_layers,
+                    heads=size(self.layers[0].time.u, 0))}
+            if self._dense:
+                if cfg.attn_type == "mla":
+                    return {name: attn.mla_cache_init(
+                                cfg, batch, max_len, device=dev,
+                                n=len(getattr(self, name)))
+                            for name in self._dense_stacks()}
+                # the kv heads a rank keeps: wk's, a share where they split
+                return {name: attn.gqa_cache_init(
                             cfg, batch, max_len, device=dev,
-                            n=len(getattr(self, name)))
+                            n=len(getattr(self, name)),
+                            n_kv_heads=size(getattr(self, name)[0].attn.wk, 1))
                         for name in self._dense_stacks()}
-            # the kv heads a rank keeps: wk's, a share where they split
-            return {name: attn.gqa_cache_init(
-                        cfg, batch, max_len, device=dev,
-                        n=len(getattr(self, name)),
-                        n_kv_heads=size(getattr(self, name)[0].attn.wk, 1))
-                    for name in self._dense_stacks()}
-        mixer = self.layers[0].mixer
-        cache = {"layers": ssm_mod.mamba2_state_init(
-            cfg, batch, device=dev, n=cfg.n_layers,
-            heads=size(mixer.norm_w, 0) // cfg.ssm_head_dim,
-            conv_dim=size(mixer.conv_b, 0))}
-        if cfg.hybrid_attn_every:
-            cache["shared_attn"] = attn.gqa_cache_init(
-                cfg, batch, max_len, device=dev,
-                n=cfg.n_layers // cfg.hybrid_attn_every,
-                n_kv_heads=size(self.shared_attn.attn.wk, 1))
-        return cache
+            mixer = self.layers[0].mixer
+            cache = {"layers": ssm_mod.mamba2_state_init(
+                cfg, batch, device=dev, n=cfg.n_layers,
+                heads=size(mixer.norm_w, 0) // cfg.ssm_head_dim,
+                conv_dim=size(mixer.conv_b, 0))}
+            if cfg.hybrid_attn_every:
+                cache["shared_attn"] = attn.gqa_cache_init(
+                    cfg, batch, max_len, device=dev,
+                    n=cfg.n_layers // cfg.hybrid_attn_every,
+                    n_kv_heads=size(self.shared_attn.attn.wk, 1))
+            return cache
 
     def cache_axes(self) -> dict[str, tuple]:
         """{cache path: logical axes} of every leaf ``init_cache`` makes,
@@ -468,37 +474,38 @@ class Model(nn.Module):
         with codebooks, cache); tokens and ``patch_embeds`` as in
         ``forward``.  An RWKV6 prefill starts from zero shift and WKV
         states whatever the cache holds, as the reference's does."""
-        cfg = self.cfg
-        x = self.embed(tokens, patch_embeds)
-        positions = self._positions(tokens)
-        layers = cache["layers"]
-        if cfg.rwkv:
-            x = self._rwkv_stack(x, layers, carry=False)
+        with span("repro.prefill"):
+            cfg = self.cfg
+            x = self.embed(tokens, patch_embeds)
+            positions = self._positions(tokens)
+            layers = cache["layers"]
+            if cfg.rwkv:
+                x = self._rwkv_stack(x, layers, carry=False)
+                return self._last_logits(x), cache
+            if self._dense:
+                for name in self._dense_stacks():
+                    for i, layer in enumerate(getattr(self, name)):
+                        with self._gathered(layer):
+                            x, _, _ = _dense_layer_fwd(
+                                layer, x, cfg, positions, "prefill",
+                                _at(cache[name], i))
+                return self._last_logits(x), cache
+            attn_idx = 0
+            for i, layer in enumerate(self.layers):
+                with self._gathered(layer):
+                    h, ssm_state, conv_state = ssm_mod.mamba2_forward(
+                        layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                        return_state=True)
+                x = x + h
+                layers["ssm"][i].copy_(ssm_state)
+                layers["conv"][i].copy_(conv_state)
+                if self._shared_due(i):
+                    with self._gathered(self.shared_attn):
+                        x, _, _ = _dense_layer_fwd(
+                            self.shared_attn, x, cfg, positions, "prefill",
+                            _at(cache["shared_attn"], attn_idx))
+                    attn_idx += 1
             return self._last_logits(x), cache
-        if self._dense:
-            for name in self._dense_stacks():
-                for i, layer in enumerate(getattr(self, name)):
-                    with self._gathered(layer):
-                        x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                                   "prefill",
-                                                   _at(cache[name], i))
-            return self._last_logits(x), cache
-        attn_idx = 0
-        for i, layer in enumerate(self.layers):
-            with self._gathered(layer):
-                h, ssm_state, conv_state = ssm_mod.mamba2_forward(
-                    layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
-                    return_state=True)
-            x = x + h
-            layers["ssm"][i].copy_(ssm_state)
-            layers["conv"][i].copy_(conv_state)
-            if self._shared_due(i):
-                with self._gathered(self.shared_attn):
-                    x, _, _ = _dense_layer_fwd(
-                        self.shared_attn, x, cfg, positions, "prefill",
-                        _at(cache["shared_attn"], attn_idx))
-                attn_idx += 1
-        return self._last_logits(x), cache
 
     # ------------------------------ decode ----------------------------- #
     @torch.no_grad()
@@ -506,45 +513,46 @@ class Model(nn.Module):
         """Single-token decode step.  tokens: (B, 1), or (B, 1, CB) with
         codebooks.  Returns (logits (B, 1, V) or (B, 1, CB, V), cache), the
         cache updated in place."""
-        cfg = self.cfg
-        x = self.embed(tokens)
-        layers = cache["layers"]
-        if cfg.rwkv:
-            return self._last_logits(self._rwkv_stack(x, layers, carry=True)
-                                     ), cache
-        positions = None
-        attn_cache = (cache.get("dense_layers", layers) if self._dense
-                      else cache.get("shared_attn"))
-        if attn_cache is not None:
-            # a copy: the first attention layer bumps len in place
-            pos = attn_cache["len"][0, 0].clone()
-            positions = pos.reshape(1, 1).expand(x.shape[0], 1)
-            if cfg.mrope:
-                positions = positions[None].expand(3, x.shape[0], 1)
-        if self._dense:
-            for name in self._dense_stacks():
-                for i, layer in enumerate(getattr(self, name)):
-                    with self._gathered(layer):
-                        x, _, _ = _dense_layer_fwd(layer, x, cfg, positions,
-                                                   "decode",
-                                                   _at(cache[name], i))
+        with span("repro.decode"):
+            cfg = self.cfg
+            x = self.embed(tokens)
+            layers = cache["layers"]
+            if cfg.rwkv:
+                x = self._rwkv_stack(x, layers, carry=True)
+                return self._last_logits(x), cache
+            positions = None
+            attn_cache = (cache.get("dense_layers", layers) if self._dense
+                          else cache.get("shared_attn"))
+            if attn_cache is not None:
+                # a copy: the first attention layer bumps len in place
+                pos = attn_cache["len"][0, 0].clone()
+                positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+                if cfg.mrope:
+                    positions = positions[None].expand(3, x.shape[0], 1)
+            if self._dense:
+                for name in self._dense_stacks():
+                    for i, layer in enumerate(getattr(self, name)):
+                        with self._gathered(layer):
+                            x, _, _ = _dense_layer_fwd(
+                                layer, x, cfg, positions, "decode",
+                                _at(cache[name], i))
+                return self._last_logits(x), cache
+            attn_idx = 0
+            for i, layer in enumerate(self.layers):
+                with self._gathered(layer):
+                    h, ssm_state, conv_state = ssm_mod.mamba2_decode(
+                        layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
+                        layers["ssm"][i], layers["conv"][i])
+                x = x + h
+                layers["ssm"][i].copy_(ssm_state)
+                layers["conv"][i].copy_(conv_state)
+                if self._shared_due(i):
+                    with self._gathered(self.shared_attn):
+                        x, _, _ = _dense_layer_fwd(
+                            self.shared_attn, x, cfg, positions, "decode",
+                            _at(cache["shared_attn"], attn_idx))
+                    attn_idx += 1
             return self._last_logits(x), cache
-        attn_idx = 0
-        for i, layer in enumerate(self.layers):
-            with self._gathered(layer):
-                h, ssm_state, conv_state = ssm_mod.mamba2_decode(
-                    layer.mixer, rms_norm(x, layer.ln, cfg.norm_eps), cfg,
-                    layers["ssm"][i], layers["conv"][i])
-            x = x + h
-            layers["ssm"][i].copy_(ssm_state)
-            layers["conv"][i].copy_(conv_state)
-            if self._shared_due(i):
-                with self._gathered(self.shared_attn):
-                    x, _, _ = _dense_layer_fwd(
-                        self.shared_attn, x, cfg, positions, "decode",
-                        _at(cache["shared_attn"], attn_idx))
-                attn_idx += 1
-        return self._last_logits(x), cache
 
 
 def build_model(cfg: ModelConfig, device=None, *, seed: int | None = 0,

@@ -16,6 +16,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import InitCtx
+from repro_torch.trace import span
 
 
 class Mamba2(nn.Module):
@@ -85,11 +86,12 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
     The reference's shifted sum, in its order, in the input's dtype (not
     ``F.conv1d``, which runs a float32 convolution in TF32 on the card)."""
-    K = w.shape[0]
-    L = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
-    out = sum(pad[:, i:i + L, :] * w[i][None, None] for i in range(K))
-    return F.silu(out + b[None, None])
+    with span("repro.causal_conv"):
+        K = w.shape[0]
+        L = xbc.shape[1]
+        pad = F.pad(xbc, (0, 0, K - 1, 0))
+        out = sum(pad[:, i:i + L, :] * w[i][None, None] for i in range(K))
+        return F.silu(out + b[None, None])
 
 
 def _dt_A(p: Mamba2, dt: torch.Tensor):
@@ -119,26 +121,28 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig, *,
     ``return_state``: (out, final SSM state (B, H, P, N) f32, conv state
     (B, K-1, conv_dim), the last K-1 pre-conv inputs); split over
     ``model``, the rank's heads and conv channels of them."""
-    di, H, bc, P = _dims(p, cfg)
-    B_, L, _ = x.shape
-    proj = _enter(p, x) @ p.w_in
-    z, xbc_raw, dt = _split_proj(proj, di, bc)
-    xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
-    xs = xbc[..., :di].reshape(B_, L, H, P).contiguous()
-    Bm, Cm = _bc(p, xbc, di, cfg.ssm_state)
-    dt, A = _dt_A(p, dt)
-    scan = ops.ssd_scan if cfg.use_kernel else ref.ssd_chunked_ref
-    res = scan(xs, dt.contiguous(), A, Bm.contiguous(), Cm.contiguous(),
-               chunk=min(cfg.ssm_chunk, L), initial_state=state,
-               return_state=return_state)
-    y, final = res if return_state else (res, None)
-    y = y + xs * _heads(p, p.D).to(xs.dtype)[None, None, :, None]
-    out = _gate_out(p, y.reshape(B_, L, di), z, cfg)
-    if return_state:
-        # the reference computes the same product again here; the pre-conv
-        # inputs are those of ``proj``
-        return out, final, xbc_raw[:, -(cfg.ssm_conv - 1):, :]
-    return out
+    with span("repro.mamba2"):
+        di, H, bc, P = _dims(p, cfg)
+        B_, L, _ = x.shape
+        proj = _enter(p, x) @ p.w_in
+        z, xbc_raw, dt = _split_proj(proj, di, bc)
+        xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
+        xs = xbc[..., :di].reshape(B_, L, H, P).contiguous()
+        Bm, Cm = _bc(p, xbc, di, cfg.ssm_state)
+        dt, A = _dt_A(p, dt)
+        scan = ops.ssd_scan if cfg.use_kernel else ref.ssd_chunked_ref
+        with span("repro.scan"):
+            res = scan(xs, dt.contiguous(), A, Bm.contiguous(),
+                       Cm.contiguous(), chunk=min(cfg.ssm_chunk, L),
+                       initial_state=state, return_state=return_state)
+        y, final = res if return_state else (res, None)
+        y = y + xs * _heads(p, p.D).to(xs.dtype)[None, None, :, None]
+        out = _gate_out(p, y.reshape(B_, L, di), z, cfg)
+        if return_state:
+            # the reference computes the same product again here; the
+            # pre-conv inputs are those of ``proj``
+            return out, final, xbc_raw[:, -(cfg.ssm_conv - 1):, :]
+        return out
 
 
 def mamba2_decode(p: Mamba2, x: torch.Tensor, cfg: ModelConfig,
