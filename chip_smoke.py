@@ -10,7 +10,9 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
 2. kernels -- run each kernel and its plain-torch version on the card at the
               main path's shapes, hold them to each other, and time both
               (see ``cuda_ms``) beside the least time the card could take
-              for the same work;
+              for the same work; ``decode_attention``, which has no TPU
+              counterpart, at the serve paths' GQA decode shapes, held to
+              float64 with bf16-rounded controls at minitron-4b's;
 3. offline -- the offline clustering path at 10^6 log rows:
               ``fit_clusters(sample_feature_logs(1_000_000, seed=7),
               m_range=range(4, 13), seed=0, batched=True)`` on the card,
@@ -38,31 +40,34 @@ Phases, each of which fails the run loudly (non-zero exit, no result line):
               ``repro_torch.launch.serve``, held to the same weights and
               prompts on the plain route (``use_kernel=False``, teacher
               forced on the kernel run's tokens); one prefill launches
-              exactly 81 ``ssd_scan`` and 13 ``flash_attention``, decode
-              neither;
+              exactly 81 ``ssd_scan`` and 13 ``flash_attention``, a decode
+              step 13 ``decode_attention``;
 8. serve   -- rwkv6-1.6b at full width and depth (24 RWKV6 layers,
               d_model 2048, 32 heads of 64) the same way; one prefill and
               every decode step each launch exactly 24 ``rwkv6``;
 9. serve   -- minitron-4b, dense GQA, at full width and depth (32 layers,
               d_model 3072, 24 query heads over 8 kv heads of 128, vocab
               256,000) the same way; one prefill launches exactly 32
-              ``flash_attention``, decode none;
+              ``flash_attention``, a decode step 32 ``decode_attention``;
 10. serve  -- mixtral-8x22b, mixture of experts, at full width (d_model
               6144, 48 query heads over 8 kv heads of 128, 8 experts of
               16,384, top 2) and 8 of its 56 layers (the whole model is 281
               GB in bf16; its float32 check runs 2 layers) the same way; one
-              prefill launches exactly 8 ``flash_attention``, decode none;
+              prefill launches exactly 8 ``flash_attention``, a decode step
+              8 ``decode_attention``;
 11. serve  -- musicgen-large, audio, at full width and depth (48 layers,
               d_model 2048, 32 heads of 64, 4 EnCodec codebook streams of
               2048 ids: prompts (8, 2048, 4), logits (8, 1, 4, 2048)) the
               same way; one prefill launches exactly 48 ``flash_attention``
-              on the kernel's KD = 4 instance, decode none;
+              on the kernel's KD = 4 instance, a decode step 48
+              ``decode_attention``;
 12. serve  -- qwen2-vl-2b, vision-language, at full width and depth (28
               layers, d_model 1536, 12 query heads over 2 kv heads of 128,
               M-RoPE, QKV bias, vocab 151,936) the same way, its prefill
               given 256 seeded patch embeddings in place of its first
               positions (the vision stub); one prefill launches exactly 28
-              ``flash_attention`` on the KD = 8 instance, decode none;
+              ``flash_attention`` on the KD = 8 instance, a decode step 28
+              ``decode_attention``;
 13. checkpoint -- a ``CheckpointTuner`` seeded with real probe saves of a
               tree on the card; rwkv6-1.6b's full weights saved to disk under
               its recommendation and under (1, 1, 1), restored to the card
@@ -397,13 +402,13 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOP_PER_
 
 def _kernel_modules():
     from repro_torch.kernels import (
-        cluster_assign, flash_attention, rwkv6, spline_fit, ssm_scan,
-        transfer_select,
+        cluster_assign, decode_attention, flash_attention, rwkv6, spline_fit,
+        ssm_scan, transfer_select,
     )
     return {"cluster_assign": cluster_assign, "spline_fit": spline_fit,
             "transfer_select": transfer_select,
             "flash_attention": flash_attention, "ssd_scan": ssm_scan,
-            "rwkv6": rwkv6}
+            "rwkv6": rwkv6, "decode_attention": decode_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -915,6 +920,197 @@ def phase_kernel_flash_attention(device) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:96", **row}
+
+
+# The split-KV decode kernel against the plain attention in float64 on the
+# same inputs (``decode_gap``): element by element, |o - o64| beyond o's own
+# rounding (half a unit in its last place, for a bf16 o) in units of 2^-24
+# (T + U) (``decode_unit``): T = sum_j p_j |v_j| the size of the terms that
+# P V sums, U = sum_j p_j A_j (|v_j| + |o|) what a float32 rounding of each
+# score by 2^-24 A_j, A_j = sum_d |q_d k_jd| / sqrt(D), moves o by to first
+# order.  Any float32 route errs by a fraction of such units: the plain
+# route too, which the serve phases hold to the same gate.  On the serve
+# paths' activations the scores are large and U is most of the unit: there
+# the kernel read up to 1.3 units over phases 9-12's launches and the plain
+# route 4.2, where a unit of 2^-24 T alone read up to 2,016 and 3,837 (on
+# an H100).  p or s rounded to bf16 moves o by 2^-9 of its terms over
+# sqrt(the keys that weigh): at minitron-4b's decode shape on random
+# inputs the kernel reads 0.03 units on the card and its order 0.02-0.42
+# on the CPU, with p in bf16 588 on the card and 458-919 on the CPU, with
+# s in bf16 3,261 and 1,532-4,474 (``_decode_order``'s controls, which
+# the kernel phase repeats on the card and which must fail the gate).
+DECODE_GAP_C = 32.0
+# (label, B, L, Hq, Hkv, D, valid slots): the serve paths' GQA decode
+# shapes (phases 7 and 9-12 and the benchmark's decode pool)
+DECODE_CASES = (
+    ("minitron-4b's decode pool", 64, 3076, 24, 8, 128, 2150),
+    ("zamba2-7b's shared block", 8, 4096, 32, 32, 112, 3000),
+    ("qwen2-vl-2b", 8, 4096, 12, 2, 128, 3000),
+    ("musicgen-large, every slot", 8, 2048, 32, 32, 64, 2048),
+    ("mixtral-8x22b's sliding-window ring, full", 4, 4096, 48, 8, 128, 4096),
+)
+
+
+def decode_unit(q, k, v, n_valid: int, o):
+    """``decode_gap``'s unit over 2^-24, T + U, (B, 1, Hq, D) in float64,
+    for q (B, 1, Hq, D), caches (B, L, Hkv, D), the slots [0, n_valid) and
+    o the float64 attention: T = sum_j p_j |v_j|, U = sum_j p_j A_j (|v_j|
+    + |o|), A_j = sum_d |q_d k_jd| / sqrt(D)."""
+    import torch
+    from repro_torch.kernels import ref
+    B, _, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    f64 = torch.float64
+    qh = q.to(f64).reshape(B, Hkv, Hq // Hkv, D)
+    kh = k.to(f64).transpose(1, 2)                      # (B, Hkv, L, D)
+    s = qh @ kh.transpose(-1, -2) / math.sqrt(D)        # (B, Hkv, g, L)
+    valid = torch.arange(L, device=q.device) < n_valid
+    p = torch.softmax(torch.where(valid, s, ref.NEG_INF), dim=-1)
+    pa = p * (qh.abs() @ kh.abs().transpose(-1, -2)) / math.sqrt(D)
+    del s, kh
+    vabs = v.to(f64).abs().transpose(1, 2)
+    oh = o.reshape(B, Hkv, Hq // Hkv, D).abs()
+    unit = p @ vabs + pa @ vabs + oh * pa.sum(-1, keepdim=True)
+    return unit.reshape(B, 1, Hq, D)
+
+
+def decode_float64(q, k, v, n_valid: int):
+    """The plain decode attention (``ref.decode_attention_ref``) in float64
+    over the slots [0, n_valid), and ``decode_unit`` for it."""
+    import torch
+    from repro_torch.kernels import ref
+    f64 = torch.float64
+    valid = torch.arange(k.shape[1], device=q.device)[None, :] < n_valid
+    o = ref.decode_attention_ref(q.to(f64), k.to(f64), v.to(f64), valid,
+                                 dtype=f64)
+    return o, decode_unit(q, k, v, n_valid, o)
+
+
+def decode_gap(got, want, unit) -> float:
+    """The largest |got - want| over the output, less half a unit in got's
+    last place where got is bf16, in units of 2^-24 ``unit``: ``want`` and
+    ``unit`` are ``decode_float64``'s on got's inputs."""
+    import torch
+    g = got.to(torch.float64)
+    err = (g - want).abs()
+    if got.dtype == torch.bfloat16:     # 8 significant bits
+        _, e = torch.frexp(g)
+        half_ulp = torch.where(g == 0, 0.0, torch.ldexp(torch.ones_like(g),
+                                                        e - 9))
+        err = (err - half_ulp).clamp_min(0)
+    return (err / (2.0 ** -24 * unit).clamp_min(1e-300)).max().item()
+
+
+def _decode_order(q, k, v, n_valid: int, chunk: int,
+                  rounded: str | None = None):
+    """The split-KV decode kernel's arithmetic in plain torch, float32:
+    per chunk of ``chunk`` keys of [0, n_valid), s = q k / sqrt(D), the
+    chunk's max m, p = exp(s - m), l = sum p, o = p v; the chunks merged by
+    log-sum-exp.  ``rounded`` "p" rounds p to bf16 where it meets v, "s"
+    rounds s to bf16: the controls that ``DECODE_GAP_C`` must reject."""
+    import torch
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    f32 = torch.float32
+    qh = q.to(f32).reshape(B, Hkv, Hq // Hkv, D)
+    sqrt_d = torch.sqrt(torch.tensor(D, dtype=f32))
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, n_valid, chunk):
+        kc = k[:, c0:min(c0 + chunk, n_valid)].to(f32).transpose(1, 2)
+        vc = v[:, c0:min(c0 + chunk, n_valid)].to(f32).transpose(1, 2)
+        s = qh @ kc.transpose(-1, -2) / sqrt_d            # (B, Hkv, g, n_c)
+        if rounded == "s":
+            s = s.bfloat16().float()
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os_.append((p.bfloat16().float() if rounded == "p" else p) @ vc)
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0))
+    o = ((w[..., None] * torch.stack(os_)).sum(0)
+         / (w * torch.stack(ls)).sum(0)[..., None])
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _decode_case(device, dtype, case, controls: bool = False,
+                 narrow: int | None = None) -> dict:
+    """The split-KV kernel on random q and caches of ``case`` (see
+    ``DECODE_CASES``) held to float64 (``decode_gap``), the plain route's
+    reading beside it, both timed beside the least time the card could
+    take: the valid keys and values read once.  With ``narrow``, the
+    caches hold ``narrow`` times the kv heads and the kernel reads the
+    first of them through a ``narrow``ed view, as a split rank does.  With
+    ``controls``, the kernel's order with p and with s rounded to bf16
+    must fail the gate."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    label, B, L, Hq, Hkv, D, n = case
+    g = torch.Generator(device=device).manual_seed(B + L + Hq + D + n)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=device).to(dtype)
+    kv = [torch.randn((B, L, Hkv * (narrow or 1), D), generator=g,
+                      device=device).to(dtype) for _ in range(2)]
+    k, v = (t.narrow(2, 0, Hkv) for t in kv)
+    n_valid = torch.tensor([n], dtype=torch.int32, device=device)
+    valid = torch.arange(L, device=device)[None, :] < n
+    out = da.decode_attention_cuda(q, k, v, n_valid)
+    want = decode_float64(q, k, v, n)
+    gap = decode_gap(out, *want)
+    plain_gap = decode_gap(ops.decode_attention(q, k, v, valid), *want)
+    check(gap <= DECODE_GAP_C, f"decode_attention {label} {dtype} is "
+          f"{gap:.2f} units from float64 (> {DECODE_GAP_C})")
+    chunk = da.split_chunk(B, L, Hkv, da._n_sm(device.index))
+    text = ""
+    if controls:
+        for rounded in (None, "p", "s"):
+            c = decode_gap(_decode_order(q, k, v, n, chunk, rounded), *want)
+            check((c > DECODE_GAP_C) == (rounded is not None),
+                  f"the decode gate reads the kernel's order with "
+                  f"{rounded or 'nothing'} rounded to bf16 at {c:.2f} units")
+            text += (f", its order in plain torch {c:.2f}" if rounded is None
+                     else f", with {rounded} in bf16 {c:.1f}")
+    del out, want
+    ms, call_ms = cuda_ms(lambda: da.decode_attention_cuda(q, k, v, n_valid))
+    plain_ms, _ = cuda_ms(lambda: ops.decode_attention(q, k, v, valid),
+                          iters=5, reps=2)
+    n_bytes = q.element_size() * (2 * B * n * Hkv * D + 2 * q.numel())
+    n_flops = 4 * D * Hq * B * n
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    print(f"[kernels] decode_attention {label}"
+          + (f" (a rank's view: {Hkv} of {Hkv * narrow} kv heads)"
+             if narrow else "")
+          + f" {str(dtype)[6:]} B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} "
+          f"n_valid={n}, chunk {chunk}: {gap:.2f} units from float64 (gate "
+          f"{DECODE_GAP_C}; the plain route {plain_gap:.2f}{text}); "
+          f"kernel_ms={ms:.4f} ({100 * bound_ms / ms:.1f}% of the bound) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+          f"{n_flops:.3e} flop, {n_bytes:.3e} B); per eager call kernel "
+          f"{call_ms:.4f} ms")
+    del q, k, v, kv
+    torch.cuda.empty_cache()
+    return {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_kernel_decode_attention(device) -> dict:
+    """At the GQA decode shapes of the serve paths (``DECODE_CASES``) in
+    bf16, minitron-4b's also in float32 and through a rank's ``narrow``ed
+    view of half its kv heads (phase 17's), with the bf16 controls at
+    minitron-4b's.  The kernel has no TPU counterpart: the reference leaves
+    decode attention to XLA.  The row reported is minitron-4b's in bf16,
+    the path's dtype."""
+    import torch
+    row = _decode_case(device, torch.bfloat16, DECODE_CASES[0], controls=True)
+    _decode_case(device, torch.float32, DECODE_CASES[0])
+    label, B, L, Hq, Hkv, D, n = DECODE_CASES[0]
+    _decode_case(device, torch.bfloat16, (label, B, L, Hq // 2, Hkv // 2, D,
+                                          n), narrow=2)
+    for case in DECODE_CASES[1:]:
+        _decode_case(device, torch.bfloat16, case)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": None, **row}
 
 
 # The bf16 SSD kernel against the plain route in float32 on the same
@@ -1555,22 +1751,30 @@ def phase_fleet(device, card_db) -> dict[str, int]:
     return counts
 
 
-def _swapped_ops(flash_attention, ssd_scan, rwkv6_scan):
-    """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
-    ``ops.rwkv6_scan`` replaced by the given functions.  The models look
-    them up in ``ops`` at each call."""
+def _swapped_ops(flash_attention, ssd_scan, rwkv6_scan,
+                 decode_attention_prefix=None):
+    """Context: ``ops.flash_attention``, ``ops.ssd_scan``,
+    ``ops.rwkv6_scan`` and (unless None) ``ops.decode_attention_prefix``
+    replaced by the given functions.  The models look them up in ``ops``
+    at each call."""
     import contextlib
     from repro_torch.kernels import ops
+    names = ("flash_attention", "ssd_scan", "rwkv6_scan",
+             "decode_attention_prefix")
+    new = dict(zip(names, (flash_attention, ssd_scan, rwkv6_scan,
+                           decode_attention_prefix)))
+    new = {name: fn for name, fn in new.items() if fn is not None}
 
     @contextlib.contextmanager
     def swapped():
-        saved = ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan
-        ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = (
-            flash_attention, ssd_scan, rwkv6_scan)
+        saved = {name: getattr(ops, name) for name in new}
+        for name, fn in new.items():
+            setattr(ops, name, fn)
         try:
             yield
         finally:
-            ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan = saved
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
     return swapped()
 
 
@@ -1591,10 +1795,12 @@ def _ssd_f64(x, dt, A, B, C):
 
 def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
                      = None, witness: list | None = None):
-    """Context: ``ops.flash_attention``, ``ops.ssd_scan`` and
-    ``ops.rwkv6_scan`` replaced by versions that launch the kernel, run its
-    plain version on the same inputs, and append (name, max abs err,
-    tolerance) to ``errors``.  For the bf16 ``ssd_scan`` launch farthest
+    """Context: ``ops.flash_attention``, ``ops.ssd_scan``,
+    ``ops.rwkv6_scan`` and ``ops.decode_attention_prefix`` replaced by
+    versions that launch the kernel, run its plain version on the same
+    inputs, and append (name, max abs err, tolerance) to ``errors``.  Each
+    ``decode_attention`` launch and the plain route on its inputs are both
+    held to float64 (``decode_gap``, ``DECODE_GAP_C``).  For the bf16 ``ssd_scan`` launch farthest
     from the float32 plain route (``ssd_gap``), ``worst_ssd`` keeps that
     (batch, head): its inputs, the kernel's y and the float32 plain y.
     With ``conditioned`` (MLA), each ``flash_attention`` launch and its
@@ -1611,6 +1817,7 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
     from repro_torch.kernels import ops, ref
 
     fa, ssd, wkv = ops.flash_attention, ops.ssd_scan, ops.rwkv6_scan
+    dap = ops.decode_attention_prefix
 
     def flash_attention(q, k, v, **kw):
         out = fa(q, k, v, **kw)
@@ -1712,29 +1919,52 @@ def _checked_kernels(errors: list, worst_ssd: dict, conditioned: dict | None
                            rwkv6_rel_tol(w, chunk, 1e-4)
                            * want[1].abs().max().item()))
 
-    return _swapped_ops(flash_attention, ssd_scan, rwkv6_scan)
+    def decode_attention_prefix(q, k, v, n_valid, *, use_kernel):
+        out = dap(q, k, v, n_valid, use_kernel=use_kernel)
+        if use_kernel and q.is_cuda:
+            with torch.no_grad():
+                check_decode(q, k, v, n_valid, out)
+        return out
+
+    def check_decode(q, k, v, n_valid, out):
+        n = int(n_valid)
+        valid = torch.arange(k.shape[1], device=q.device)[None, :] < n
+        want = decode_float64(q, k, v, n)
+        errors.append(("decode_attention vs float64",
+                       decode_gap(out, *want), DECODE_GAP_C))
+        errors.append(("decode_attention plain vs float64",
+                       decode_gap(ops.decode_attention(q, k, v, valid),
+                                  *want), DECODE_GAP_C))
+
+    return _swapped_ops(flash_attention, ssd_scan, rwkv6_scan,
+                        decode_attention_prefix)
 
 
-LM_KERNELS = ("flash_attention", "ssd_scan", "rwkv6")
+LM_KERNELS = ("flash_attention", "ssd_scan", "rwkv6", "decode_attention")
 
 
 def lm_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     """Launches of each LM kernel that ``n_prefill`` prefills and
     ``n_decode`` decode steps of ``cfg``'s model make: an RWKV6 layer runs
     ``rwkv6`` in both; a hybrid runs ``ssd_scan`` in each Mamba2 layer's
-    prefill and ``flash_attention`` in each shared block's, and neither in
-    decode; a layer of the dense stack (the dense, MoE, audio and
-    vision-language families, either of DeepSeek's stacks) runs
-    ``flash_attention`` in its prefill and none in decode (decode attention,
-    MLA's absorbed form included, is plain torch, as in the reference)."""
+    prefill, ``flash_attention`` in each shared block's prefill and
+    ``decode_attention`` in its decode; a layer of the dense stack (the
+    dense, MoE, audio and vision-language families, either of DeepSeek's
+    stacks) runs ``flash_attention`` in its prefill and, with GQA,
+    ``decode_attention`` in its decode (MLA's absorbed decode is plain
+    torch, as in the reference)."""
     n = dict.fromkeys(LM_KERNELS, 0)
     if cfg.rwkv:
         n["rwkv6"] = cfg.n_layers * (n_prefill + n_decode)
     elif cfg.family not in ("ssm", "hybrid"):
         n["flash_attention"] = cfg.n_layers * n_prefill
+        if cfg.attn_type != "mla":
+            n["decode_attention"] = cfg.n_layers * n_decode
     else:
         n["ssd_scan"] = cfg.n_layers * n_prefill
-        n["flash_attention"] = cfg.n_layers // cfg.hybrid_attn_every * n_prefill
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        n["flash_attention"] = n_attn * n_prefill
+        n["decode_attention"] = n_attn * n_decode
     return n
 
 
@@ -1827,11 +2057,13 @@ def _check_on_activations(model, prompts, label: str,
               f"plain route {ssd_gap(w['want'], y64, None):.3f}, float64 "
               f"rounded to bf16 {ssd_gap(y64.bfloat16(), y64, None):.3f}")
     # two results a launch: every ssd_scan and rwkv6 launch of the serve path
-    # returns its final state, and a bf16 flash_attention or ssd_scan is
-    # also held to the float32 plain route
+    # returns its final state, a bf16 flash_attention or ssd_scan is also
+    # held to the float32 plain route, and a decode_attention launch and
+    # the plain route on its inputs are each held to float64
     per_launch = {"flash_attention": 3 if mla is not None else
                   (2 if bf16 else 1),
-                  "ssd_scan": 3 if bf16 else 2, "rwkv6": 2}
+                  "ssd_scan": 3 if bf16 else 2, "rwkv6": 2,
+                  "decode_attention": 2}
     n_results = sum(per_launch[name] * (c2[name] - c0[name])
                     for name in LM_KERNELS)
     check(len(errors) == n_results and not bad,
@@ -2034,11 +2266,12 @@ def _serve(device, arch: str) -> dict[str, int]:
     #    the embedding table is perturbed by 1e-6 (relative).  The routes'
     #    gap is bounded by that growth of a 1e-6 difference, times
     #    sqrt(launches) for the places such differences enter: the prefill's
-    #    and the decode steps' launches (zamba2-7b: 94, all in the prefill;
-    #    rwkv6-1.6b: 24 in each of the 9 calls; minitron-4b: 32,
-    #    mixtral-8x22b's 2 float32 layers: 2, musicgen-large: 48,
-    #    qwen2-vl-2b: 28 and deepseek-v3-671b's 4: 4, all in the prefill).
-    #    With codebooks, the perturbed tables are the streams'.
+    #    and the decode steps' launches (rwkv6-1.6b: 24 in each of the 9
+    #    calls; zamba2-7b: 94 in the prefill and 13 a step; minitron-4b: 32
+    #    and 32, mixtral-8x22b's 2 float32 layers: 2 and 2, musicgen-large:
+    #    48 and 48, qwen2-vl-2b: 28 and 28; deepseek-v3-671b's 4: 4, all in
+    #    the prefill, its MLA decode being the plain route's).  With
+    #    codebooks, the perturbed tables are the streams'.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=F32_LAYERS
                                 .get(arch, cfg.n_layers))
     if cfg32.n_layers < cfg.n_layers:
@@ -2508,7 +2741,8 @@ def _checked_train_grads(model, batch, label: str) -> dict[str, int]:
           and loss == loss, f"{label}: a non-finite loss or gradient")
     bf16 = cfg.dtype == torch.bfloat16
     per_launch = {"flash_attention": 2 if bf16 else 1,
-                  "ssd_scan": 2 if bf16 else 1, "rwkv6": 1}
+                  "ssd_scan": 2 if bf16 else 1, "rwkv6": 1,
+                  "decode_attention": 2}
     n_results = sum(per_launch[n] * got[n] for n in LM_KERNELS)
     bad = [e for e in errors if not e[1] <= e[2]]
     worst = {name: max(e[1] / e[2] for e in errors if e[0] == name)
@@ -3222,8 +3456,8 @@ def _dist_pipeline(device, model) -> dict[str, int]:
     check(torch.equal(got, want), "the pipeline's output differs from the "
           "sequential stack's")
     check(counts["flash_attention"] == n_launch and counts["ssd_scan"] == 0
-          and counts["rwkv6"] == 0, f"the pipeline launched {counts}, not "
-          f"{n_launch} flash_attention")
+          and counts["rwkv6"] == 0 and counts["decode_attention"] == 0,
+          f"the pipeline launched {counts}, not {n_launch} flash_attention")
     return counts
 
 
@@ -4349,7 +4583,7 @@ def main() -> int:
     rows = [phase_kernel_cluster_assign(device), phase_kernel_spline_fit(device),
             phase_kernel_transfer_select(card_db),
             phase_kernel_flash_attention(device), phase_kernel_ssd_scan(device),
-            phase_kernel_rwkv6(device)]
+            phase_kernel_rwkv6(device), phase_kernel_decode_attention(device)]
     launch_floor(device)
     paths = [phase_offline(device), phase_tuner(device),
              phase_fleet(device, card_db), phase_baselines(device)]

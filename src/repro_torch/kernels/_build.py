@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("cluster_assign", "spline_fit", "transfer_select", "flash_attention",
-           "ssd_scan", "rwkv6")
+           "ssd_scan", "rwkv6", "decode_attention")
 
 
 def _nvcc() -> str:

@@ -13,7 +13,9 @@ call (grad mode on and an input that requires grad), it goes through a
 the inputs detached (the kernel on the card), and its backward recomputes
 the plain version from the saved inputs and returns that version's
 vector-Jacobian product, the gradient the reference's training route
-computes.
+computes.  ``decode_attention_prefix``'s kernel serves decode alone and has
+no gradient; it takes the caller's ``use_kernel`` itself, since its plain
+route first builds the mask of the valid slots.
 """
 from __future__ import annotations
 
@@ -116,23 +118,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, Hq, D); caches: (B, L, Hkv, D); valid_mask: (B, L) or (1, L).
     Plain torch on every device, as in the reference, which has no kernel
-    for it: a memory-bound gather and reduce over the cache.
+    for it (``ref.decode_attention_ref``): it casts the whole cache to
+    float32 before it multiplies.
     """
     with span("repro.decode_attend"):
-        B, Sq, Hq, D = q.shape
-        _, L, Hkv, _ = k_cache.shape
-        g = Hq // Hkv
-        f32 = torch.float32
-        qr = q.reshape(B, Sq, Hkv, g, D)
-        scores = torch.einsum("bqhgd,blhd->bhgql", qr.to(f32),
-                              k_cache.to(f32)) / torch.sqrt(
-                                  torch.tensor(D, dtype=f32))
-        mask = valid_mask[:, None, None, None, :]
-        scores = torch.where(mask, scores,
-                             torch.full_like(scores, ref.NEG_INF))
-        probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhgql,blhd->bqhgd", probs, v_cache.to(f32))
-        return o.reshape(B, Sq, Hq, D).to(q.dtype)
+        return ref.decode_attention_ref(q, k_cache, v_cache, valid_mask)
+
+
+def decode_attention_prefix(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, n_valid: torch.Tensor, *,
+                            use_kernel: bool | None) -> torch.Tensor:
+    """``decode_attention`` where the valid slots are the prefix
+    ``[0, n_valid)`` of the caches, as in every GQA cache (a sliding
+    window's ring included), ``n_valid`` a one-element int32 tensor on q's
+    device: with ``use_kernel``, on the card, the split-KV CUDA kernel,
+    which reads only those slots and never waits for the card
+    (``kernels.decode_attention``); else ``decode_attention`` over the
+    prefix's mask."""
+    if use_kernel and q.is_cuda:
+        from repro_torch.kernels.decode_attention import decode_attention_cuda
+        with span("repro.decode_attend"):
+            return decode_attention_cuda(q, k_cache, v_cache, n_valid)
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] < n_valid
+    return decode_attention(q, k_cache, v_cache, valid)
 
 
 def _ssd_scan(x, dt, A, B, C, **kw):

@@ -247,6 +247,28 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(blocks, dim=1).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, valid_mask: torch.Tensor, *,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Single-step attention against a (possibly ring-buffer) KV cache, the
+    reference's ``decode_attention``: q (B, 1, Hq, D); caches (B, L, Hkv,
+    D); valid_mask (B, L) or (1, L) -> q's dtype.  The scores, the softmax
+    and P V in ``dtype`` (float32, as the reference; float64 for a
+    witness) over every slot, the invalid ones masked to -1e30."""
+    B, Sq, Hq, D = q.shape
+    _, L, Hkv, _ = k_cache.shape
+    g = Hq // Hkv
+    qr = q.reshape(B, Sq, Hkv, g, D)
+    scores = torch.einsum("bqhgd,blhd->bhgql", qr.to(dtype),
+                          k_cache.to(dtype)) / torch.sqrt(
+                              torch.tensor(D, dtype=dtype))
+    mask = valid_mask[:, None, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgql,blhd->bqhgd", probs, v_cache.to(dtype))
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
 # --------------------------------------------------------------------- #
 # Mamba2 SSD (state-space duality), chunked
 # --------------------------------------------------------------------- #

@@ -5,10 +5,13 @@ attention (MLA).
 
 Prefill goes through ``kernels.ops.flash_attention`` (the hand-written
 CUDA kernel on the card) when ``cfg.use_kernel`` is set, else through the
-plain route ``kernels.ops.plain_attention``; decode is plain torch on every
-device, as in the reference.  MLA's prefill pads v from ``v_head_dim`` to
-the query-key width and slices the output back, as the reference does, and
-caches only the latents; its decode is the reference's absorbed form.
+plain route ``kernels.ops.plain_attention``; GQA decode goes through
+``kernels.ops.decode_attention_prefix``, which takes the split-KV CUDA
+kernel on the card under ``cfg.use_kernel`` and the plain
+``kernels.ops.decode_attention`` otherwise.  MLA's prefill pads v
+from ``v_head_dim`` to the query-key width and slices the output back, as
+the reference does, and caches only the latents; its decode is the
+reference's absorbed form.
 
 The decode cache is updated in place: the prefill and decode functions
 write the new keys and values (MLA: latents) and the length counter into
@@ -159,10 +162,10 @@ def gqa_decode(p: GQA, x: torch.Tensor, cfg: ModelConfig,
     with span("repro.cache_write"):
         cache["k"].index_copy_(1, slot.reshape(1), k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot.reshape(1), v.to(cache["v"].dtype))
-    n_valid = torch.clamp(pos + 1, max=L)
-    valid = torch.arange(L, device=x.device)[None, :] < n_valid
-    o = ops.decode_attention(q, _attended(p, cache["k"]),
-                             _attended(p, cache["v"]), valid)
+    n_valid = torch.clamp(cache["len"][0] + 1, max=L)   # int32, on the device
+    o = ops.decode_attention_prefix(q, _attended(p, cache["k"]),
+                                    _attended(p, cache["v"]), n_valid,
+                                    use_kernel=cfg.use_kernel)
     cache["len"] += 1
     return _out(p, o), cache
 

@@ -13,7 +13,7 @@ package's (``repro.analysis``), on the CPU; it mirrors
   ``ref.py`` twin, a parity test; each rule fires on its fixture.
 - The capture rules (TRACE001-002) on ``torch.compile``,
   ``make_graphed_callables`` and ``torch.cuda.graph`` fixtures.
-- A self-scan of ``src/repro_torch`` that is clean, finds all six kernels,
+- A self-scan of ``src/repro_torch`` that is clean, finds all seven kernels,
   and whose every suppression carries a reason; the CLI entry point.
 """
 import json
@@ -671,7 +671,7 @@ def test_trace002_python_state_written_in_a_captured_function(tmp_path):
 # ------------------------------------------------------------------ #
 def test_self_scan_of_the_port_is_clean_and_finds_six_kernels():
     """``python -m repro_torch.analysis src/repro_torch`` holds on the tree
-    it ships in, every family on, and the kernel contract sees all six
+    it ships in, every family on, and the kernel contract sees all seven
     kernels, each with its dispatch."""
     res = port_analysis.run_analysis([REPO / "src" / "repro_torch"],
                                      root=REPO,
@@ -689,7 +689,8 @@ def test_self_scan_of_the_port_is_clean_and_finds_six_kernels():
         "batched_predict_argmax_cuda": "transfer_select",
         "flash_attention_cuda": "flash_attention",
         "ssd_scan_cuda": "ssd_scan",
-        "rwkv6_cuda": "rwkv6"}
+        "rwkv6_cuda": "rwkv6",
+        "decode_attention_cuda": "decode_attention"}
     assert set(_dispatch_map(corpus)) == set(entries)
 
 

@@ -53,7 +53,18 @@ matters where a sum's terms cancel, as they do on real activations.  The
 sound order reads 0.44-0.66 units over the CPU cases; the same order with O kept in bf16 reads 8.12 where many keys
 reach each output (slow decays), and without the state update's lo half
 its state misses 1e-4 twentyfold
-(``test_ssd_gates_tell_the_kernel_order_from_faulty_ones``).
+(``test_ssd_gates_tell_the_kernel_order_from_faulty_ones``).  The split-KV
+decode kernel keeps float32 products, p and sums, so it differs from
+``ops.decode_attention`` only in the order of its sums: ``_split_kv_order``
+repeats its chunks and their log-sum-exp merge on the CPU within the
+decode test's 2e-5 of the JAX reference, a tolerance that a chunk dropped,
+a max not rescaled or keys past n_valid fail.  On the card the kernel is
+held to the plain attention in float64 by chip_smoke.py's ``decode_gap``:
+element by element, beyond a bf16 output's own rounding, within
+``DECODE_GAP_C`` units of 2^-24 of the size of the terms P V sums plus
+what float32's rounding of the scores moves the output by, a gate that
+the same order with p or the scores rounded to bf16 fails at
+minitron-4b's shape (``test_decode_gap_tells_the_kernel_order_from_*``).
 """
 import functools
 from pathlib import Path
@@ -365,6 +376,173 @@ def test_bf16_gap_tells_the_kernel_order_from_faulty_ones(fault):
     gap = _bf16_gap(got, ops.plain_attention(tq.float(), tk.float(),
                                              tv.float(), **kw))
     assert (gap <= BF16_GAP_C) == (fault is None), gap
+
+
+# ------------------------- split-KV decode --------------------------- #
+def _split_kv_order(q, k, v, n_valid, *, chunk, fault=None, rounded=None):
+    """The split-KV decode kernel's arithmetic in plain torch, float32: per
+    chunk of ``chunk`` keys of the valid prefix, s = q k / sqrt(D), the
+    chunk's max m, p = exp(s - m), l = sum p and o = p v; then the chunks
+    merged by log-sum-exp, o = sum_c w_c o_c / sum_c w_c l_c with
+    w_c = exp(m_c - max m).  ``fault`` makes it a kernel the tolerance must
+    reject: "drop" leaves the last chunk out, "rescale" merges without
+    w_c, "past" reads every slot of the cache.  ``rounded`` makes it one
+    that keeps less than float32: "p" rounds p to bf16 where it meets v,
+    "s" rounds the scores to bf16."""
+    B, _, Hq, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    n = L if fault == "past" else n_valid
+    qh = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    kh, vh = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    sqrt_d = torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    ms, ls, os_ = [], [], []
+    for c0 in range(0, n, chunk):
+        keys = slice(c0, min(c0 + chunk, n))
+        s = qh @ kh[:, :, keys].transpose(-1, -2) / sqrt_d   # (B, Hkv, g, n_c)
+        if rounded == "s":
+            s = s.bfloat16().float()
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os_.append((p.bfloat16().float() if rounded == "p" else p)
+                   @ vh[:, :, keys])
+    if fault == "drop":
+        del ms[-1], ls[-1], os_[-1]
+    m = torch.stack(ms)
+    w = torch.ones_like(m) if fault == "rescale" else torch.exp(m - m.amax(0))
+    o = (w[..., None] * torch.stack(os_)).sum(0) / (w * torch.stack(ls)).sum(0)[..., None]
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+SPLIT_CHUNK = 64                      # the kernel's narrowest chunk
+SPLIT_L = 3 * SPLIT_CHUNK + 20        # reserved slots: three chunks and a ragged one
+SPLIT_N_VALID = {"one key": 1, "a chunk less one": SPLIT_CHUNK - 1,
+                 "a chunk": SPLIT_CHUNK, "a chunk and one": SPLIT_CHUNK + 1,
+                 "every slot": SPLIT_L}
+
+
+def _split_inputs(B, L, Hq, Hkv, D, seed):
+    """q and the caches, bf16 values held in float32 (the card's inputs:
+    their products are exact in float32)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                             ).bfloat16().float()
+            for s in ((B, 1, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D))]
+
+
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("g", [1, 3, 6])
+@pytest.mark.parametrize("n_valid", list(SPLIT_N_VALID))
+def test_split_kv_order_matches_reference(jax_pkg, n_valid, g, D):
+    """The split-KV order, chunks merged by log-sum-exp, against the JAX
+    reference's ``decode_attention`` over the prefix [0, n_valid), within
+    ``test_decode_attention_matches_reference``'s 2e-5."""
+    n = SPLIT_N_VALID[n_valid]
+    tq, tk, tv = _split_inputs(2, SPLIT_L, 2 * g, 2, D, n + 7 * g + D)
+    jq, jk, jv = (jax_pkg.jnp.asarray(_np(t)) for t in (tq, tk, tv))
+    valid = np.arange(SPLIT_L)[None, :] < n
+    want = jax_pkg.ops.decode_attention(jq, jk, jv, jax_pkg.jnp.asarray(valid))
+    got = _split_kv_order(tq, tk, tv, n, chunk=SPLIT_CHUNK)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("fault", [None, "drop", "rescale", "past"])
+def test_split_kv_tolerance_tells_the_order_from_faulty_merges(fault):
+    """Over two whole chunks and a ragged one, of a cache with slots past
+    n_valid, the same 2e-5 against the plain version passes the kernel's
+    order and fails a chunk dropped, the running max not rescaled, and
+    keys past n_valid read."""
+    n, g, D = 2 * SPLIT_CHUNK + 17, 3, 128
+    tq, tk, tv = _split_inputs(2, SPLIT_L, 2 * g, 2, D, 33)
+    want = ops.decode_attention(tq, tk, tv,
+                                torch.arange(SPLIT_L)[None, :] < n)
+    got = _split_kv_order(tq, tk, tv, n, chunk=SPLIT_CHUNK, fault=fault)
+    ok = np.allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    assert ok == (fault is None)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rounded", [None, "p", "s"])
+def test_decode_gap_tells_the_kernel_order_from_bf16_roundings(rounded,
+                                                                out_dtype):
+    """chip_smoke.py's gate for the split-KV kernel (``decode_gap`` against
+    float64, ``DECODE_GAP_C``), which the card tests apply too, at
+    minitron-4b's decode shape a request (3,076 slots, 2,150 valid, 24 q
+    heads over 8 kv heads of 128, the kernel's 256-key chunks): it passes
+    the kernel's order with float32 p and scores, in a float32 output and
+    in a bf16 one, and fails the same order with p, or the scores, rounded
+    to bf16."""
+    cs = _chip_smoke()
+    n = 2150
+    tq, tk, tv = _split_inputs(2, 3076, 24, 8, 128, 61)
+    got = _split_kv_order(tq, tk, tv, n, chunk=256, rounded=rounded)
+    ok = _decode_gap_ok(got.to(out_dtype), tq, tk, tv, n)
+    assert ok == (rounded is None)
+
+
+@pytest.mark.parametrize("rounded", [None, "p", "s"])
+def test_chip_smoke_decode_order_is_the_emulated_order(rounded):
+    """chip_smoke.py's split-KV order, whose bf16 roundings are its card
+    controls, reads as this file's emulation under ``decode_gap``: within
+    a unit where it passes, and past the gate where it fails."""
+    cs = _chip_smoke()
+    n = 2 * 256 + 41
+    tq, tk, tv = _split_inputs(2, 700, 24, 8, 128, 62)
+    want = cs.decode_float64(tq, tk, tv, n)
+    ours = cs.decode_gap(_split_kv_order(tq, tk, tv, n, chunk=256,
+                                         rounded=rounded), *want)
+    theirs = cs.decode_gap(cs._decode_order(tq, tk, tv, n, 256, rounded),
+                           *want)
+    if rounded is None:
+        assert abs(ours - theirs) <= 1.0 and theirs <= cs.DECODE_GAP_C
+    else:
+        assert min(ours, theirs) > cs.DECODE_GAP_C
+
+
+@pytest.mark.parametrize("B,L,Hkv,n_sm,chunk", [
+    (64, 3076, 8, 132, 256),    # minitron-4b's decode pool: 6,656 blocks
+    (8, 4096, 8, 132, 256),     # 1,024 blocks
+    (3, 4096, 8, 132, 128),     # 384 blocks at 256 keys: too few
+    (1, 2048, 8, 132, 64),      # one request: as many as it gives
+    (1, 20, 2, 132, 64),
+])
+def test_split_chunk_fills_the_card(B, L, Hkv, n_sm, chunk):
+    from repro_torch.kernels.decode_attention import split_chunk
+    assert split_chunk(B, L, Hkv, n_sm) == chunk
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_gqa_decode_takes_the_prefix_dispatch_under_use_kernel(monkeypatch,
+                                                                window):
+    """A decode step goes through ``ops.decode_attention_prefix`` once,
+    with the count of valid slots (the ring's too, once full) and the
+    config's ``use_kernel``, and on the CPU both settings give the plain
+    route's output bit for bit."""
+    calls = []
+    monkeypatch.setattr(ops, "decode_attention_prefix", functools.partial(
+        lambda f, q, k, v, n, *, use_kernel: calls.append(
+            (int(n), use_kernel)) or f(q, k, v, n, use_kernel=use_kernel),
+        ops.decode_attention_prefix))
+    x = torch.from_numpy(np.random.default_rng(23).normal(
+        size=(2, 8, _cfg().d_model)).astype(np.float32))
+    outs = {}
+    for use_kernel in (False, True):
+        cfg = _cfg(sliding_window=window, use_kernel=use_kernel)
+        blk = tattn.gqa_init(cfg, InitCtx(torch.float32, torch.device("cpu")))
+        _fill(blk, 21)
+        cache = tattn.gqa_cache_init(cfg, 2, 12, device="cpu")
+        pos = torch.arange(8).repeat(2, 1)
+        tattn.gqa_prefill(blk, x, cfg, pos, cache)
+        outs[use_kernel] = [
+            tattn.gqa_decode(blk, x[:, i:i + 1], cfg,
+                             torch.full((2, 1), 8 + i), cache)[0]
+            for i in range(3)]
+    L = 6 if window else 12
+    assert calls == [(min(9 + i, L), use_kernel) for use_kernel in
+                     (False, True) for i in range(3)]
+    for a, b in zip(outs[False], outs[True]):
+        assert torch.equal(a, b)
 
 
 # ------------------------------ SSD ---------------------------------- #
@@ -807,7 +985,8 @@ def test_gqa_block_matches_reference(jax_pkg, window):
 @pytest.mark.parametrize("module,symbol", [
     ("flash_attention", "flash_attention_launch"),
     ("ssm_scan", "ssd_scan_launch"),
-    ("rwkv6", "rwkv6_launch")])
+    ("rwkv6", "rwkv6_launch"),
+    ("decode_attention", "decode_attention_launch")])
 def test_ctypes_binding_matches_the_c_signature(module, symbol):
     """Each wrapper's ``argtypes`` follow its kernel's ``extern "C"``
     signature, parameter for parameter (the sources compile only on the
@@ -1162,3 +1341,125 @@ def test_lm_kernels_refuse_what_they_do_not_take_on_card(cuda):
         ssd_scan_cuda(x, dt, A, Bm, Bm)
     with pytest.raises(TypeError, match="float32 dt"):
         ssd_scan_cuda(x[..., :8], dt.double(), A, Bm, Bm)
+
+
+# (B, L, Hq, Hkv, D, n_valid)
+CARD_DECODE_CASES = [
+    (64, 3076, 24, 8, 128, 2150),   # minitron-4b's decode pool
+    (8, 4096, 32, 32, 112, 3000),   # zamba2-7b's shared block
+    (8, 4096, 12, 2, 128, 1),       # qwen2-vl-2b, one key
+    (8, 2048, 32, 32, 64, 2048),    # musicgen-large, every slot
+    (4, 4096, 48, 8, 128, 4096),    # mixtral-8x22b's sliding-window ring, full
+    (2, 300, 16, 1, 256, 257),      # D = 256, g = 16: two blocks a kv head
+    (1, 100, 5, 1, 8, 65),          # D = 8, g = 5, one request
+    (3, 1000, 10, 2, 40, 0),        # no slot valid: each weighs the same
+    (3, 1000, 10, 2, 40, 2000),     # n_valid past L counts as L
+]
+
+
+def _card_decode_inputs(cuda, case, dtype, seed):
+    B, L, Hq, Hkv, D = case[:5]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, 1, Hq, D), (B, L, Hkv, D), (B, L, Hkv, D))]
+
+
+def _decode_gap_ok(got, q, k, v, n_valid):
+    """Within chip_smoke.py's gate (``decode_gap``) of the plain decode
+    attention in float64 on the same inputs: float32 sums in another
+    order, and for bf16 the output's one rounding."""
+    cs = _chip_smoke()
+    f64 = torch.float64
+    q, k, v = (t.to(f64) for t in (q, k, v))
+    valid = torch.arange(k.shape[1], device=q.device)[None, :] < n_valid
+    want = ref.decode_attention_ref(q, k, v, valid, dtype=f64)
+    unit = cs.decode_unit(q, k, v, n_valid, want)
+    return cs.decode_gap(got, want, unit) <= cs.DECODE_GAP_C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CARD_DECODE_CASES)
+def test_decode_attention_kernel_matches_plain_on_card(cuda, case, dtype):
+    """The split-KV kernel through ``ops.decode_attention_prefix`` against
+    the plain decode attention in float64 on the same inputs
+    (``_decode_gap_ok``)."""
+    from repro_torch.kernels import decode_attention as da
+    n = case[5]
+    q, k, v = _card_decode_inputs(cuda, case, dtype, sum(case))
+    n_valid = torch.tensor([n], dtype=torch.int32, device=cuda)
+    before = da.launches
+    got = ops.decode_attention_prefix(q, k, v, n_valid, use_kernel=True)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1 and got.dtype == dtype
+    assert _decode_gap_ok(got, q, k, v, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(2, 2), (7, 1)])
+def test_decode_attention_kernel_takes_a_narrowed_cache_on_card(cuda, heads):
+    """A split rank's kv heads are a ``narrow`` of its cache: the kernel
+    reads them by their strides, with the result of the same heads copied
+    out, bit for bit, and within the plain version's gate."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    h0, n_h = heads
+    q, k, v = _card_decode_inputs(cuda, (8, 2100, 24, 8, 128), torch.bfloat16,
+                                  41)
+    q = q[:, :, :3 * n_h]
+    ks, vs = k.narrow(2, h0, n_h), v.narrow(2, h0, n_h)
+    assert not ks.is_contiguous()
+    n_valid = torch.tensor([1999], dtype=torch.int32, device=cuda)
+    got = decode_attention_cuda(q, ks, vs, n_valid)
+    copied = decode_attention_cuda(q, ks.contiguous(), vs.contiguous(),
+                                   n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, copied)
+    assert _decode_gap_ok(got, q, ks, vs, 1999)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_replays_in_a_cuda_graph_on_card(cuda):
+    """Captured once, replayed after ``n_valid`` changed in place: equal to
+    the eager call at each count, and nothing waits for the card on the way
+    (``set_sync_debug_mode("error")`` raises on a synchronising call)."""
+    q, k, v = _card_decode_inputs(cuda, (8, 1000, 24, 8, 128),
+                                  torch.bfloat16, 43)
+    n_valid = torch.tensor([300], dtype=torch.int32, device=cuda)
+    run = functools.partial(ops.decode_attention_prefix, use_kernel=True)
+    run(q, k, v, n_valid)   # builds and loads it
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    replays, eager = [], []
+    try:
+        with torch.cuda.graph(graph):   # its entry synchronises, by design
+            torch.cuda.set_sync_debug_mode("error")
+            out = run(q, k, v, n_valid)
+        for n in (777, 1, 1000):
+            n_valid.fill_(n)
+            graph.replay()
+            replays.append(out.clone())
+            eager.append(run(q, k, v, torch.full((1,), n, dtype=torch.int32,
+                                                 device=cuda)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for a, b in zip(replays, eager):
+        assert torch.equal(a, b)
+    assert not torch.equal(replays[0], replays[1])
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_refuses_what_it_does_not_take_on_card(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    q, k, v = _card_decode_inputs(cuda, (1, 64, 4, 2, 16), torch.bfloat16, 1)
+    n = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention_cuda(q, k, v, n.long())
+    with pytest.raises(ValueError, match="multiple"):
+        decode_attention_cuda(q[..., :12], k[..., :12], v[..., :12], n)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        decode_attention_cuda(q[:, :, :3], k, v, n)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention_cuda(q[..., :8], k[..., 4:12], v[..., 4:12], n)
+    with pytest.raises(TypeError, match="one dtype"):
+        decode_attention_cuda(q.float(), k, v, n)
