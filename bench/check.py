@@ -49,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from bench import traffic, weights
+from bench import families, traffic, weights
 from bench.reference.quant import bf16, fp8
 
 
@@ -161,12 +161,14 @@ def _verdict(c, values: dict, control: dict | None, extra: dict) -> dict:
             **extra}
 
 
-def _picked(out: dict, picks: dict) -> dict:
-    """A reference prefill's state cut to the SSM heads a run kept (its
-    keys and values come at the kept positions already)."""
-    if "ssm" in picks:
-        out["ssm"] = out["ssm"].index_select(1, picks["ssm"].to(
-            out["ssm"].device))
+def _picked(out: dict, picks: dict, cut) -> dict:
+    """A reference prefill's state with each leaf of ``cut`` that a run
+    picked from cut to its picks (the SSM heads a run kept; the reference
+    hands the keys and values back at the kept positions already)."""
+    for leaf in cut:
+        if leaf in picks:
+            out[leaf] = out[leaf].index_select(1, picks[leaf].to(
+                out[leaf].device))
     return out
 
 
@@ -204,7 +206,7 @@ def check_prefill(c, seed: int, kept: list[Kept], device,
                   control: bool = False, witness: bool = False) -> dict:
     t0 = time.perf_counter()
     cfg = c.cfg
-    ref = reference(cfg)
+    ref, fam = reference(cfg), families.of(cfg)
     sample = select(kept, seed, c.sample["tokens"])
     W = weights.make(cfg, traffic.subseed(seed, traffic.STREAM_WEIGHTS),
                      device)
@@ -219,8 +221,9 @@ def check_prefill(c, seed: int, kept: list[Kept], device,
         for k in sample:
             tokens = traffic.prompts(k.batch, cfg["vocab_size"], seed,
                                      device)[k.row]
-            pos = k.picks["k"].to(device)
-            want = _picked(ref.prefill(W, cfg, tokens, pos), k.picks)
+            pos = k.picks[fam.POSITIONS].to(device)
+            want = _picked(ref.prefill(W, cfg, tokens, pos), k.picks,
+                           fam.CUT)
             err, leaf = worst(sides["program"].add(k.logits, k.state, want,
                                                    device))
             if not err <= top:
@@ -229,7 +232,7 @@ def check_prefill(c, seed: int, kept: list[Kept], device,
                                    f"{leaf}")
             for side, quant in lower.items():
                 low = _picked(ref.prefill(W, cfg, tokens, pos, quant=quant),
-                              k.picks)
+                              k.picks, fam.CUT)
                 sides[side].add(
                     low["logits"], {leaf: low[leaf] for leaf in k.state},
                     want, device)

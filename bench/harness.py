@@ -11,6 +11,7 @@ the host.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bench import traffic, weights
+from bench import families, traffic, weights
 from bench.check import Kept, check_decode, check_prefill
 from bench.trace import Trace, read as read_trace
 
@@ -31,11 +32,6 @@ BENCH = ROOT / "bench"
 # top-level module names the run's process must not hold (the JAX package
 # and JAX itself); compared whole, so ``repro_torch`` passes
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-# the program's ``ModelConfig`` fields a configuration file gives
-PROGRAM_KEYS = ("name", "family", "n_layers", "d_model", "n_heads",
-                "n_kv_heads", "d_ff", "vocab_size", "ssm_state",
-                "ssm_head_dim", "ssm_expand", "ssm_conv", "ssm_chunk",
-                "hybrid_attn_every", "rope_theta", "norm_eps")
 # decode steps run in set-up, after the first batch's prefill
 WARM_STEPS = 2
 
@@ -106,7 +102,7 @@ class Run:
 
 def program_config(cfg: dict):
     from repro_torch.models.config import ModelConfig
-    kw = {k: cfg[k] for k in PROGRAM_KEYS if k in cfg}
+    kw = {k: cfg[k] for k in families.of(cfg).PROGRAM_KEYS if k in cfg}
     return ModelConfig(**kw, dtype=getattr(torch, cfg["dtype"]))
 
 
@@ -147,20 +143,28 @@ def _serve_module():
 # --------------------------------------------------------------------- #
 # prefill pool
 # --------------------------------------------------------------------- #
+def kept_names(cache: dict) -> dict[tuple[str, str], str]:
+    """{(stack, leaf): the name a kept request's state keys it by} for
+    every leaf of the cache's stacks but ``len``: the leaf's own name where
+    no other stack holds it, ``<stack>.<leaf>`` where two or more do."""
+    pairs = [(stack, leaf) for stack, leaves in cache.items()
+             for leaf in leaves if leaf != "len"]
+    held = collections.Counter(leaf for _, leaf in pairs)
+    return {(stack, leaf): leaf if held[leaf] == 1 else f"{stack}.{leaf}"
+            for stack, leaf in pairs}
+
+
 def _keep(cache: dict, row: int, picks: dict) -> dict:
-    """One request's decode state, on the host: every stacked leaf's row,
-    where ``picks`` names the leaf only the entries it picks along the
-    row's axis 1 (cache positions of keys and values, heads of the SSM
-    state)."""
+    """One request's decode state, on the host, keyed as ``kept_names``
+    keys it: every stacked leaf's row, where ``picks`` names the leaf only
+    the entries it picks along the row's axis 1 (cache positions of keys
+    and values, heads of the SSM state)."""
     out = {}
-    for stack in cache.values():
-        for leaf, t in stack.items():
-            if leaf == "len":
-                continue
-            part = t[:, row]
-            if leaf in picks:
-                part = part.index_select(1, picks[leaf].to(part.device))
-            out[leaf] = part.to("cpu")
+    for (stack, leaf), name in kept_names(cache).items():
+        part = cache[stack][leaf][:, row]
+        if name in picks:
+            part = part.index_select(1, picks[name].to(part.device))
+        out[name] = part.to("cpu")
     return out
 
 
@@ -226,33 +230,10 @@ def kept_row(b: traffic.Batch, seed: int, nth: int) -> int:
     return int(lo + rng.integers(hi - lo))
 
 
-def _drawn(n: int, k: int, tail: int, seed: int, stream_index: int
-           ) -> torch.Tensor:
-    """k of range(n), sorted: the last ``tail`` and the rest drawn from
-    the seed; all of them where n <= k."""
-    if n <= k:
-        return torch.arange(n)
-    rng = np.random.default_rng(traffic.subseed(seed, traffic.STREAM_SAMPLE,
-                                                stream_index))
-    head = rng.choice(n - tail, size=k - tail, replace=False)
-    return torch.as_tensor(np.sort(np.concatenate(
-        [head, np.arange(n - tail, n)])), dtype=torch.long)
-
-
 def picks(b: traffic.Batch, seed: int, c: Cell) -> dict:
-    """What a kept request's check compares of the state it hands on:
-    ``kv_positions`` cache positions of the keys and values (the last half
-    of them and the rest drawn from the seed) and, where the cell's sample
-    names ``ssm_heads``, that many heads of the SSM state drawn from the
-    seed (all of them otherwise)."""
-    n = c.sample["kv_positions"]
-    pos = _drawn(b.length, n, n // 2, seed, b.index + (1 << 40))
-    out = {"k": pos, "v": pos}
-    if "ssm_heads" in c.sample:
-        heads = c.cfg["ssm_expand"] * c.cfg["d_model"] // c.cfg["ssm_head_dim"]
-        out["ssm"] = _drawn(heads, c.sample["ssm_heads"], 0, seed,
-                            b.index + (1 << 43))
-    return out
+    """What a kept request's check compares of the state it hands on: the
+    family's picks (``bench.families``), drawn from the seed."""
+    return families.of(c.cfg).picks(b, seed, c)
 
 
 # --------------------------------------------------------------------- #

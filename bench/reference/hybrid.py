@@ -23,6 +23,8 @@ from bench.reference.layers import (F32, gqa_block, head_logits, mm,
                                     rms_norm, stream)
 
 CHUNK = 256
+# positions whose logits one product of the head takes
+HEAD_ROWS = 256
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -84,11 +86,10 @@ def mamba2(W, pre: str, x: torch.Tensor, cfg: dict, quant=None):
     return mm(g, w("w_out"), quant), state, xbc_in[L - (K - 1):]
 
 
-def prefill(W, cfg: dict, tokens: torch.Tensor, kv_positions: torch.Tensor,
-            quant=None) -> dict:
-    """One request's prefill: tokens (L,) -> {"logits": the last position's
-    (V,), "ssm": (n, H, P, N), "conv": (n, K - 1, C), "k", "v": (n_attn,
-    len(kv_positions), Hkv, hd) at ``kv_positions``}."""
+def _stack(W, cfg: dict, tokens: torch.Tensor, kv_positions, quant):
+    """The layers over tokens (L,): the stream (L, d) before the final
+    norm, and each layer's decode state (the shared block's keys and values
+    at ``kv_positions``; none where it is None)."""
     L = tokens.shape[0]
     positions = torch.arange(L, device=tokens.device)
     x = W["embedding"][tokens].to(F32)
@@ -99,13 +100,36 @@ def prefill(W, cfg: dict, tokens: torch.Tensor, kv_positions: torch.Tensor,
         h = rms_norm(x, W[pre + "ln"].to(F32), cfg["norm_eps"])
         out, s, c = mamba2(W, pre + "mixer.", h, cfg, quant)
         x = stream(x + out, quant)
-        ssm.append(s)
-        conv.append(c)
+        if kv_positions is not None:
+            ssm.append(s)
+            conv.append(c)
         if (i + 1) % every == 0:
             x, k, v = gqa_block(W, "shared_attn.", x, cfg, positions, quant)
-            ks.append(k[kv_positions])
-            vs.append(v[kv_positions])
+            if kv_positions is not None:
+                ks.append(k[kv_positions])
+                vs.append(v[kv_positions])
+    return x, (ssm, conv, ks, vs)
+
+
+def prefill(W, cfg: dict, tokens: torch.Tensor, kv_positions: torch.Tensor,
+            quant=None) -> dict:
+    """One request's prefill: tokens (L,) -> {"logits": the last position's
+    (V,), "ssm": (n, H, P, N), "conv": (n, K - 1, C), "k", "v": (n_attn,
+    len(kv_positions), Hkv, hd) at ``kv_positions``}."""
+    x, (ssm, conv, ks, vs) = _stack(W, cfg, tokens, kv_positions, quant)
     logits = head_logits(W, x[-1:], cfg, quant)[0]
     return {"logits": logits, "ssm": torch.stack(ssm),
             "conv": torch.stack(conv), "k": torch.stack(ks),
             "v": torch.stack(vs)}
+
+
+def logits_from(W, cfg: dict, tokens: torch.Tensor, start: int,
+                quant=None) -> torch.Tensor:
+    """The logits (L - start, V) of positions start .. L - 1 of one
+    sequence tokens (L,), each predicting the token after it: what a
+    prefill of tokens[:start + 1] and decode steps through its cache
+    give."""
+    x, _ = _stack(W, cfg, tokens, None, quant)
+    x = x[start:]
+    return torch.cat([head_logits(W, x[i:i + HEAD_ROWS], cfg, quant)
+                      for i in range(0, x.shape[0], HEAD_ROWS)])

@@ -1,10 +1,15 @@
 """Cells at a size the CPU holds: the cells' own configurations cut to the
-port's smoke sizes, their traffic shrunk, their limits as they are."""
+port's smoke sizes, their traffic shrunk, their limits as they are.  The
+cells are read from ``BENCHMARK.json`` (``CELLS``, which the card runs)
+and from the workload files (``FILED``, which the CPU runs), so a cell
+added by files and entries alone gets the smoke and fault tests with no
+edit here."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
-from bench import harness
+from bench import families, harness
 
 SMOKE_MIX = {
     "prefill": {"kind": "prefill", "tokens_per_batch": 64,
@@ -18,12 +23,14 @@ SMOKE_SAMPLE = {"prefill": {"tokens": 160, "kv_positions": 8},
 
 
 def smoke_cfg(name: str, **over) -> dict:
-    """``configs/<name>.json`` at the port's smoke sizes."""
+    """``configs/<name>.json`` at the port's smoke sizes: its family's
+    program keys taken from the smoke variant of the port's configuration
+    of the same name, or of the one its ``port_config`` names."""
     from repro_torch.configs import get_config
     cfg = dict(harness.load("configs", name))
-    small = get_config(name, "smoke")
-    cfg.update({k: getattr(small, k) for k in harness.PROGRAM_KEYS
-                if k != "name"})
+    small = get_config(cfg.get("port_config", name), "smoke")
+    cfg.update({k: getattr(small, k) for k in families.of(cfg).PROGRAM_KEYS
+                if k not in ("name", "family")})
     cfg.update(over)
     return cfg
 
@@ -37,5 +44,10 @@ def smoke_cell(name: str, **over) -> harness.Cell:
                                sample=dict(SMOKE_SAMPLE[kind]))
 
 
-CELLS = ("zamba2-7b.prefill", "minitron-4b.decode",
-         "minitron-4b.prefill-long")
+CELLS = tuple(w["name"] for w in json.loads(
+    (harness.ROOT / "BENCHMARK.json").read_text())["workloads"])
+# every cell its files define (``workloads/<cell>.json``), whether or not
+# ``BENCHMARK.json`` lists it: a cell taken out of the benchmark keeps its
+# CPU smoke and fault runs, so that it can come back by entries alone
+FILED = tuple(sorted(p.stem for p in (harness.BENCH / "workloads").glob(
+    "*.json")))

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from bench import harness
-from bench.tests.smoke import CELLS, smoke_cell
+from bench.tests.smoke import FILED, smoke_cell
 
 SEED = 2 ** 31 + 17
 SECONDS = 4.0  # two batches of two or more requests, also on a loaded CPU
@@ -61,7 +61,7 @@ FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
           "token_altered": _token_altered}
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", FILED)
 def test_sound_run_is_correct(name):
     checks = _run(name)
     assert checks["correct"], checks
@@ -69,7 +69,7 @@ def test_sound_run_is_correct(name):
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", FILED)
 def test_fault_is_not_correct(name, fault, monkeypatch):
     from repro_torch.models.model import Model
     entry = "decode" if harness.cell(name).mix["kind"] == "decode" \

@@ -53,7 +53,10 @@ def test_configs_files_and_cells_agree():
         assert (spec["config"], spec["traffic"]) == (w["config"], w["traffic"])
         assert w["chips"] == 1
         c = harness.cell(w["name"])
-        assert c.limits and c.cfg["reference"] in ("hybrid", "dense")
+        assert c.limits
+        assert (harness.BENCH / "reference"
+                / f"{c.cfg['reference']}.py").is_file()
+        assert (harness.BENCH / "families" / f"{c.cfg['family']}.py").is_file()
 
 
 # keys that name a width, which ``reduced`` may not name
@@ -61,7 +64,7 @@ WIDTH = re.compile(r"(_dim|_rank|_size)$|intermediate|latent|expand"
                    r"|per_tok|d_model|d_ff")
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "minitron-4b"])
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
 def test_configurations_name_their_departures(name):
     cfg = harness.load("configs", name)
     assert cfg["reduced"], "each departs from its source"
@@ -201,6 +204,8 @@ def test_mfu_readers():
     assert run._reader("decode.enqueue_ms")(d) == pytest.approx(100.0)
     assert run._reader("itl_p95_ms")(d) == pytest.approx(150.0)
     assert run._reader("tokens_per_s")(d) == pytest.approx(128.0)
+    assert run._reader("tokens_per_s.decode")(d) == pytest.approx(128.0)
+    assert run._reader("peak_mem_gib.decode")(d) == pytest.approx(3.0)
 
 
 def test_traffic_mixes_are_data():

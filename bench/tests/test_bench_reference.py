@@ -1,19 +1,20 @@
 """The plain references against the port's plain route, in float32 at the
 port's smoke sizes on the CPU: the same weights (``bench.weights``), the
-same prompts, the logits and the decode state a prefill hands on, and for
-the dense family the logits of decode steps through the cache."""
+same prompts, the logits and the decode state a prefill hands on, and the
+logits of decode steps through the cache."""
 from __future__ import annotations
 
 import pytest
 import torch
 
-from bench import check, harness, traffic, weights
+from bench import check, families, harness, traffic, weights
 from bench.reference import dense, hybrid, quant
 from bench.tests.smoke import smoke_cfg
 
 # relative L2 of a float32 result against the other float32 route: their
-# sums run in different orders (chunked scans of other chunk sizes,
-# attention blocked or not), ~1e-6 at these sizes
+# sums run in different orders (chunked scans of other chunk sizes, the
+# decode's one-token recurrence against the chunked scan, attention blocked
+# or not), ~1e-6 at these sizes
 F32_REL = 1e-4
 
 
@@ -50,24 +51,42 @@ def test_prefill_matches_the_port(name, ref, S):
                                         else {})
         got = harness._keep(res.cache, row, picks)
         assert set(got) == {k for k in want if k != "logits"}
-        err, where = check.state_err(got, check._picked(want, picks), "cpu")
+        cut = families.of(cfg).CUT
+        err, where = check.state_err(got, check._picked(want, picks, cut),
+                                     "cpu")
         assert err < F32_REL, where
 
 
-def test_dense_decode_matches_the_port():
+def _decode_matches(name: str, ref) -> float:
+    """The port's prefill, then its decode steps through the cache,
+    against the reference over the whole sequence at once; the largest
+    relative gap of the logits."""
     from repro_torch.launch.serve import serve
-    cfg = smoke_cfg("minitron-4b", dtype="float32")
+    cfg = smoke_cfg(name, dtype="float32")
     model, W = _program(cfg, 4)
     b = traffic.Batch(0, 2, 12, 6)
     prompts = traffic.prompts(b, cfg["vocab_size"], 4, "cpu")
     res = serve(model, prompts, 6, keep_logits=True)
     got = torch.cat([res.prefill_logits] + res.decode_logits, dim=1)
+    top = 0.0
     for row in range(2):
         seq = torch.cat([prompts[row], res.tokens[row, :-1]])
-        want = dense.logits_from(W, cfg, seq, 11)
+        want = ref.logits_from(W, cfg, seq, 11)
         assert want.shape == got[row].shape
-        assert _rel(got[row], want) < F32_REL
+        top = max(top, _rel(got[row], want))
         assert check.gap(want, res.tokens[row]).max().item() < 1e-4
+    return top
+
+
+def test_dense_decode_matches_the_port():
+    assert _decode_matches("minitron-4b", dense) < F32_REL
+
+
+def test_hybrid_decode_matches_the_port():
+    """The hybrid's decode takes the one-token Mamba2 recurrence and the
+    shared block's cached keys and values; the reference the chunked scan
+    over the whole sequence."""
+    assert _decode_matches("zamba2-7b", hybrid) < F32_REL
 
 
 def test_bf16_program_stays_near_the_reference():

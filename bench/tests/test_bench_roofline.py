@@ -4,6 +4,7 @@ from __future__ import annotations
 import pytest
 
 from bench import harness, roofline, weights
+from bench.families import dense, hybrid
 
 TINY_DENSE = {"family": "dense", "n_layers": 2, "d_model": 8, "n_heads": 2,
               "n_kv_heads": 1, "d_ff": 16, "vocab_size": 32}
@@ -53,7 +54,7 @@ def test_ssd_scan_counts():
 def test_dense_prefill_counts():
     cfg = TINY_DENSE
     per_layer = 8 * (2 + 2 * 1) * 4 + 2 * 4 * 8 + 3 * 8 * 16 + 2 * 8
-    assert roofline.layer_weights(cfg) == 2 * per_layer
+    assert dense.layer_weights(cfg) == 2 * per_layer
     flops, n_bytes = roofline.prefill(cfg, 3, 5)
     attn = 2 * (4 * 4 * 15 * 3 * 2)
     assert flops == 2 * 15 * 2 * per_layer + 2 * 3 * 8 * 32 + attn
@@ -68,8 +69,28 @@ def test_dense_decode_step_counts():
     assert flops == 2 * 3 * (2 * per_layer + 8 * 32) + 2 * 4 * 4 * 2 * 3 * 7
     assert n_bytes == 2 * (2 * per_layer + 8 * 32 + 3 * 8) \
         + 2 * 3 * 7 * 2 * 2 * 1 * 4
-    with pytest.raises(ValueError):
-        roofline.decode_step(TINY_HYBRID, 1, 1)
+
+
+def test_hybrid_decode_step_counts():
+    # B 3, 7 valid positions in the shared block's one cache; 2 Mamba2
+    # layers of 4 heads of P 2, N 2, conv channels C 12, K 4
+    cfg = TINY_HYBRID
+    di, H, P, N, C = 8, 4, 2, 2, 12
+    mamba = 4 * (2 * di + 2 * N + H) + di * 4 + 4 * C + C + 3 * H + di + 4
+    gqa = 4 * (2 + 2 * 2) * 2 + 2 * 2 * 4 + 3 * 4 * 8 + 2 * 4
+    flops, n_bytes = roofline.decode_step(cfg, 3, 7)
+    # a one-token scan a request and layer: C B^T (N), (C B^T) (dt x) (H P)
+    # and the state's update and read-out (4 H P N)
+    scan = 3 * (N + H * (P + 4 * P * N))
+    assert scan == 222
+    assert flops == 2 * 3 * (2 * mamba + gqa + 4 * 10) \
+        + 4 * 2 * 2 * 3 * 7 + 2 * scan
+    # the weights, the head and the B embedding rows; the valid keys and
+    # values (2 kv heads of 2); each layer's float32 SSM state and bf16
+    # last K - 1 conv inputs read and written
+    state = 2 * 3 * (4 * H * P * N + 2 * 3 * C)
+    assert n_bytes == 2 * (2 * mamba + gqa + 4 * 10 + 3 * 4) \
+        + 3 * 7 * 2 * 2 * 2 * 2 + 2 * state
 
 
 def test_hybrid_prefill_counts():
@@ -77,7 +98,7 @@ def test_hybrid_prefill_counts():
     di, H, P, N, C = 8, 4, 2, 2, 12
     mamba = 4 * (2 * di + 2 * N + H) + di * 4 + 4 * C + C + 3 * H + di + 4
     gqa = 4 * (2 + 2 * 2) * 2 + 2 * 2 * 4 + 3 * 4 * 8 + 2 * 4
-    assert roofline.layer_weights(cfg) == 2 * mamba + gqa
+    assert hybrid.layer_weights(cfg) == 2 * mamba + gqa
     B, S = 2, 6
     flops, n_bytes = roofline.prefill(cfg, B, S)
     scan = 2 * roofline.ssd_scan(B, S, H, P, N, 4)[0]

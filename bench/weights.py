@@ -1,6 +1,6 @@
 """The served weights, made by the benchmark from the seed on the device.
 
-``spec(cfg)`` lists every leaf of a family (the names the program's
+``spec(cfg)`` lists every leaf of a configuration (the names the program's
 parameters carry) with its shape and how it is drawn.  ``make(cfg, seed,
 device)`` draws them all in bfloat16, the served type: every normal leaf
 from a few calls into one flat buffer, then scaled in place; the per-head
@@ -18,64 +18,27 @@ import math
 
 import torch
 
+from bench import families
+
 # leaves start at multiples of this many elements of the flat buffer
 ALIGN = 64
 # elements one call draws
 DRAW = 1 << 30
 
 
-def _matrix(shape, fan_in):
+def matrix(shape, fan_in):
+    """A matrix leaf drawn N(0, 1/fan_in)."""
     return (tuple(shape), "normal", 1.0 / math.sqrt(fan_in))
 
 
-def _gqa_layer(pre: str, cfg: dict) -> dict:
-    d, H, Hkv, f = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], cfg["d_ff"]
-    hd = d // H
-    return {
-        pre + "ln1": ((d,), "norm", 0.1),
-        pre + "ln2": ((d,), "norm", 0.1),
-        pre + "attn.wq": _matrix((d, H, hd), d),
-        pre + "attn.wk": _matrix((d, Hkv, hd), d),
-        pre + "attn.wv": _matrix((d, Hkv, hd), d),
-        pre + "attn.wo": _matrix((H, hd, d), H * hd),
-        pre + "ffn.w_gate": _matrix((d, f), d),
-        pre + "ffn.w_up": _matrix((d, f), d),
-        pre + "ffn.w_down": _matrix((f, d), f),
-    }
-
-
-def _mamba_layer(pre: str, cfg: dict) -> dict:
-    d, N, P, K = cfg["d_model"], cfg["ssm_state"], cfg["ssm_head_dim"], \
-        cfg["ssm_conv"]
-    di = cfg["ssm_expand"] * d
-    H, C = di // P, di + 2 * N
-    return {
-        pre + "ln": ((d,), "norm", 0.1),
-        pre + "mixer.w_in": _matrix((d, 2 * di + 2 * N + H), d),
-        pre + "mixer.conv_w": _matrix((K, C), K),
-        pre + "mixer.conv_b": ((C,), "normal", 0.1),
-        pre + "mixer.A_log": ((H,), "A_log", None),
-        pre + "mixer.D": ((H,), "ones", None),
-        pre + "mixer.dt_bias": ((H,), "dt_bias", None),
-        pre + "mixer.norm_w": ((di,), "norm", 0.1),
-        pre + "mixer.w_out": _matrix((di, d), di),
-    }
-
-
 def spec(cfg: dict) -> dict[str, tuple]:
-    """{name: (shape, kind, std)} of every leaf, in the program's order."""
+    """{name: (shape, kind, std)} of every leaf, in the program's order:
+    the embedding, the final norm and the head, then the family's layers
+    (``bench.families``)."""
     d, V = cfg["d_model"], cfg["vocab_size"]
     out = {"embedding": ((V, d), "normal", 1.0), "ln_f": ((d,), "norm", 0.1),
-           "head": _matrix((d, V), d)}
-    if cfg["family"] == "hybrid":
-        for i in range(cfg["n_layers"]):
-            out.update(_mamba_layer(f"layers.{i}.", cfg))
-        out.update(_gqa_layer("shared_attn.", cfg))
-    elif cfg["family"] == "dense":
-        for i in range(cfg["n_layers"]):
-            out.update(_gqa_layer(f"layers.{i}.", cfg))
-    else:
-        raise ValueError(f"no weights for the {cfg['family']!r} family")
+           "head": matrix((d, V), d)}
+    out.update(families.of(cfg).layers(cfg))
     return out
 
 
